@@ -1,0 +1,17 @@
+"""hsa-tpu on PyTorch and CUDA: the port of :mod:`hsa_tpu` to an NVIDIA H100.
+
+The package mirrors ``hsa_tpu``'s layout, one module per counterpart, and
+imports ``torch`` but never ``jax``.  It reuses ``hsa_tpu``'s JAX-free host
+layer (``config``, ``alphabet``, ``refpack``, ``io``, ``resolve``,
+``metrics``, the numpy index layout, ``ReadBatch`` and ``build_index``), so
+both packages read and write the same index directory.
+
+Covered so far: single-end alignment through the exhaustive beam engine
+(``engine="beam"``), from index to SAM, with the top-K selection of every
+beam step as a hand-written CUDA kernel (``kernels/select.py``,
+``csrc/select_topk.cu``).  Every function takes an explicit ``device``; on
+the CPU the kernel's plain PyTorch version runs instead, which is what the
+test suite exercises against the JAX reference.
+"""
+
+__version__ = "0.1.0"

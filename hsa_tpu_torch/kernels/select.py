@@ -1,0 +1,131 @@
+"""Top-K selection for the beam engine: a CUDA kernel and its plain version.
+
+Replaces the Pallas kernel ``hsa_tpu/kernels/select.py:_build_select``
+(body ``kern``, :59-89) behind ``select_topk`` (:124-203).  The kernel is
+``csrc/select_topk.cu``: one thread per column, K rounds of "smallest
+valid key above the previous pick".  It is bound by its column scans,
+``(1 + min(K, nvalid)) * C`` coalesced loads per column, streamed from
+device memory once the key matrix outgrows the L2 (see the source's note).
+
+Contract (the JAX function's, on int32 tensors):
+
+- ``key``: int32 [C, B], one column per read strand.  A valid key is
+  ``score << KEY_SH | row``, unique within its column; ``SENT`` and above
+  mark an invalid slot.  Keys are below 2^31.
+- ``payloads``: up to three int32 [C, B] matrices of raw 32-bit patterns,
+  carried with their keys.
+- ``window``: optional int32 [B] or [1, B]; keys whose score is above it
+  are invalid.
+- ``drop_accum``: optional int32 [B] or [1, B] running drop counter.
+
+Returns ``(okeyd [K+1, B], payload outs [K, B] each, ndrop [1, B])``: rows
+0..K-1 of ``okeyd`` are the K smallest valid keys in order, row K is
+``drop_accum + max(nvalid - K, 0)``, and ``ndrop`` is a view of that row.
+
+Slots past the valid keys differ between the two versions, as they do
+between the Pallas kernel and its sort reference: the kernel writes
+``SENT`` and payload 0 there, the plain version the sorted invalid keys and
+their payloads.  Valid slots, the drop row and ``nvalid`` agree exactly.
+
+The wrapper runs the plain version only for CPU tensors.  For CUDA
+tensors it builds the kernel at first use and launches it on the current
+stream, or raises; ``KERNEL.launches`` counts its launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import CudaKernel
+
+KEY_SH = 14                      # key = score << KEY_SH | row
+SENT = 0x7FFF0000                # invalid-key sentinel
+MAX_PAY = 3
+
+
+def _declare(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.hsa_select_topk.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                    i, i, i, vp]
+    lib.hsa_select_topk.restype = ctypes.c_int
+
+
+KERNEL = CudaKernel("select_topk.cu", _declare)
+
+
+def _check(key, payloads, K, window, drop_accum):
+    if key.dtype != torch.int32 or key.dim() != 2:
+        raise TypeError(f"key must be a 2-D int32 tensor, got {key.dtype} "
+                        f"{tuple(key.shape)}")
+    C, B = key.shape
+    if not 1 <= K <= C:
+        raise ValueError(f"K={K} outside [1, C={C}]")
+    if len(payloads) > MAX_PAY:
+        raise ValueError(f"at most {MAX_PAY} payloads, got {len(payloads)}")
+    for t in (key, *payloads):
+        if t.dtype != torch.int32 or t.shape != key.shape:
+            raise TypeError(f"payloads must be int32 {tuple(key.shape)}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+        if t.device != key.device or not t.is_contiguous():
+            raise ValueError("key and payloads must be contiguous on one device")
+    for name, t in (("window", window), ("drop_accum", drop_accum)):
+        if t is None:
+            continue
+        if t.dtype != torch.int32 or t.numel() != B or t.dim() > 2:
+            raise TypeError(f"{name} must be int32 [B] or [1, B] with B={B}")
+        if t.device != key.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on the key's device")
+
+
+def select_topk_plain(key, payloads, K: int, window=None, drop_accum=None):
+    """Plain PyTorch version: a stable sort along the rows carrying the
+    payloads (``select_topk_reference`` in the JAX package)."""
+    C, B = key.shape
+    if window is not None:
+        key = torch.where((key >> KEY_SH) > window.reshape(1, B), key | SENT, key)
+    nvalid = (key < SENT).sum(dim=0)
+    nd = (nvalid - K).clamp(min=0)
+    if drop_accum is not None:
+        nd = ((drop_accum.reshape(B).long() & 0xFFFFFFFF) + nd) & 0xFFFFFFFF
+    sk, order = torch.sort(key, dim=0, stable=True)
+    top = order[:K]
+    pouts = tuple(p.gather(0, top) for p in payloads)
+    okeyd = torch.cat([sk[:K], nd.reshape(1, B).to(torch.int32)], dim=0)
+    return okeyd, pouts, okeyd[K:K + 1]
+
+
+def _select_topk_cuda(key, payloads, K, window, drop_accum):
+    C, B = key.shape
+    lib = KERNEL.lib()
+    okeyd = torch.empty((K + 1, B), dtype=torch.int32, device=key.device)
+    pouts = tuple(torch.empty((K, B), dtype=torch.int32, device=key.device)
+                  for _ in payloads)
+    if B == 0:                       # nothing to launch over
+        return okeyd, pouts, okeyd[K:K + 1]
+    pin = [p.data_ptr() for p in payloads] + [None] * (MAX_PAY - len(payloads))
+    pout = [p.data_ptr() for p in pouts] + [None] * (MAX_PAY - len(pouts))
+    with torch.cuda.device(key.device):
+        stream = torch.cuda.current_stream(key.device).cuda_stream
+        err = lib.hsa_select_topk(
+            key.data_ptr(), len(payloads), *pin, *pout,
+            window.data_ptr() if window is not None else None,
+            drop_accum.data_ptr() if drop_accum is not None else None,
+            okeyd.data_ptr(), C, B, K, stream)
+    if err:
+        raise RuntimeError(f"select_topk kernel launch failed: CUDA error {err} "
+                           f"at C={C} B={B} K={K}")
+    KERNEL.count_launch()
+    return okeyd, pouts, okeyd[K:K + 1]
+
+
+def select_topk(key, payloads, K: int, window=None, drop_accum=None):
+    """Top-K smallest-key rows of [C, B] int32 matrices (module doc)."""
+    payloads = tuple(payloads)
+    _check(key, payloads, K, window, drop_accum)
+    if key.device.type == "cpu":
+        return select_topk_plain(key, payloads, K, window, drop_accum)
+    if key.device.type != "cuda":
+        raise ValueError(f"select_topk: unsupported device {key.device}")
+    return _select_topk_cuda(key, payloads, K, window, drop_accum)
