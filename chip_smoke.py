@@ -6,20 +6,22 @@ Run from the root of a checkout, on a machine with a CUDA card::
     python3 chip_smoke.py [--seed 1] [--profile]
 
 It imports nothing of JAX and nothing of the JAX package: it drives the
-port through its CLI (``hsa_tpu_torch.cli``), its ``Aligner`` and its
-kernel wrapper.  Every phase that fails exits non-zero; there is no CPU
-fallback, and without a CUDA device (or without the rest of the repository
-beside it) it exits non-zero before printing any result.
+port through its CLI (``hsa_tpu_torch.cli``), its ``Aligner``, its kernel
+wrappers and its native-library loader.  Every phase that fails exits
+non-zero; there is no CPU fallback, and without a CUDA device (or without
+the rest of the repository beside it) it exits non-zero before printing
+any result.
 
 1. Device and build: the card's name and power limit (``nvidia-smi``),
-   the torch/CUDA versions; builds the select_topk CUDA kernel from
-   ``hsa_tpu_torch/csrc``, with its time.
-2. Kernel against plain, on the card, at the beam step's two shapes
+   the torch/CUDA versions; builds both CUDA kernels from
+   ``hsa_tpu_torch/csrc`` (select_topk, glocal_screen), one nvcc each, in
+   parallel, with their times.
+2. select_topk against plain, on the card, at the beam step's two shapes
    (frontier ``[576, 32768]`` K=64 with window, hit merge ``[352, 32768]``
    K=32; three payloads each; seeded): valid keys and payloads, the drop
    row and nvalid must be exactly equal.  Median ms of both versions,
    timed in turns with CUDA events.
-3. Main path through the CLI, in process: an i.i.d. genome of
+3. Single-end main path through the CLI, in process: an i.i.d. genome of
    46,709,983 bp (human chr21 scale) from ``--seed``; ``hsa_tpu_torch.cli
    index`` (which builds the native index library and prints its time;
    the index is cached under ``hsa_tpu_torch/_build/smoke/``, keyed by
@@ -27,18 +29,41 @@ beside it) it exits non-zero before printing any result.
    defaults on 32,768 reads of 100 bp: half reverse-strand, each with 2
    mismatches, every fourth also with a 1-bp deletion.
 4. Checks: mapped fraction >= 0.95; mapped reads within 2 bp of their
-   origin >= 0.99; the kernel's launch count during phase 3 alone equals
-   2 x n_steps x batches; the first 256 reads through ``align --device
-   cpu`` (the plain path) give a byte-equal SAM.  Prints reads/s over the
-   whole align window and, per batch, how long its yield was waited for
-   (the stream searches batches ahead, so that is no per-batch rate).
-5. With ``--profile``, where the time goes on the warm card: each batch's
-   stream phases (search; readback + hits + locate; resolve) one after
-   another with the device synchronised between them; one batch's search
-   under ``torch.profiler`` (kernel launches, host time in torch ops,
-   device busy time, idle share, the top kernels, peak memory); then
-   ``align --device cuda`` twice more, warm, against the sequential sum.
-6. Prints the kernel table as one JSON line, then, as the last line,
+   origin >= 0.99; the select kernel's launch count during phase 3 alone
+   equals 2 x n_steps x batches; the first 256 reads through ``align
+   --device cpu`` (the plain path) give a byte-equal SAM.  Prints reads/s
+   over the whole align window and, per batch, how long its yield was
+   waited for (the stream searches batches ahead, so that is no per-batch
+   rate).
+5. glocal_screen against plain, on the card, on 16,384 rescue-like jobs
+   (reads of 150 bp, windows of 576 bp; exact, 2-mismatch, deletion,
+   random and shorter read-in-window classes; seeded): cost and end must
+   be exactly equal on every job.  Median ms of both, timed in turns, and
+   the host time of the native ``glocal_batch`` (DP with traceback, the
+   reference's rescue) on the same jobs, whose costs must agree too.
+6. Paired-end main path: ``align-pe --engine beam --device cuda`` at the
+   CLI defaults (``-a 500``, 16,384 pairs a batch) on phase 3's genome and
+   index, 32,768 pairs of 150 bp from fragments of about N(400, 30) bp
+   with 2 substitutions each, end 2 reverse-complemented; every 8th
+   pair's end 2 carries 12 more substitutions, over the search budget
+   and within the rescue's.
+7. Checks: among the other pairs, the fraction of mapped ends and of
+   mapped ends within 2 bp of their origin; the fraction of the heavy
+   mates placed by rescue (``XT:Z:M``) within 2 bp of their origin; the
+   select kernel's launches during phase 6 alone equal 2 x n_steps x
+   batches, and the glocal kernel's equal the number of batches with
+   rescue jobs, which must be above 0.  Then 512 pairs through
+   ``align-pe`` on ``cuda`` and on ``cpu`` (the plain path) must give
+   byte-equal SAMs.
+8. With ``--profile``, where the time goes on the warm card: each
+   single-end batch's stream phases (search; readback + hits + locate;
+   resolve) one after another with the device synchronised between them;
+   one batch's search under ``torch.profiler`` (kernel launches, host
+   time in torch ops, device busy time, idle share, the top kernels, peak
+   memory); ``align --device cuda`` twice more, warm, against the
+   sequential sum; then the same per-batch phases and warm runs for
+   ``align-pe``, with the mate rescue timed apart.
+9. Prints the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -62,6 +87,12 @@ CROSS_CHECK = 256
 MAPPED_MIN, PLACED_MIN = 0.95, 0.99
 FRONTIER = dict(C=576, B=32_768, K=64, window=True)
 MERGE = dict(C=352, B=32_768, K=32, window=False)
+SCORES = (3, 11, 4)             # -M -O -E at the CLI defaults
+GLOCAL = dict(R=16_384, L=150, G=576)
+PE_PAIRS, PE_LEN, PE_ISIZE, PE_ISIZE_SD = 32_768, 150, 400, 30
+HEAVY_EVERY, HEAVY_SUBS = 8, 12
+PE_CROSS_CHECK = 512
+PE_MAPPED_MIN, PE_PLACED_MIN, RESCUED_MIN = 0.99, 0.99, 0.95
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -88,15 +119,21 @@ def device_info():
           f"device {torch.cuda.get_device_name(0)}")
 
 
-def build_kernel():
-    from hsa_tpu_torch.kernels import select
+def build_kernels():
+    """Every CUDA source of the package, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from hsa_tpu_torch.kernels import select, sw
+    kernels = {"select_topk": select.KERNEL, "glocal_screen": sw.KERNEL}
     t0 = time.perf_counter()
-    select.KERNEL.lib()
-    print(f"select_topk kernel built in {time.perf_counter() - t0:.3f} s "
-          f"(nvcc {select.KERNEL.build_s} s)")
-    for line in select.KERNEL.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(kernels)) as ex:
+        for fut in [ex.submit(k.lib) for k in kernels.values()]:
+            fut.result()
+    print(f"kernels built in {time.perf_counter() - t0:.3f} s")
+    for name, k in kernels.items():
+        print(f"{name}: nvcc {k.build_s} s")
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 # -- 2. kernel against plain ---------------------------------------------------
@@ -218,11 +255,11 @@ def make_reads(genome, n_reads, seed):
     return reads, origin
 
 
-def write_fastq(path, reads):
-    qual = "I" * READ_LEN
+def write_fastq(path, reads, prefix="r"):
     with open(path, "w") as fh:
         for j, r in enumerate(reads):
-            fh.write(f"@r{j}\n{ACGT[r].tobytes().decode()}\n+\n{qual}\n")
+            fh.write(f"@{prefix}{j}\n{ACGT[r].tobytes().decode()}\n+\n"
+                     f"{'I' * len(r)}\n")
 
 
 def ensure_index(genome, seed, workdir):
@@ -295,7 +332,169 @@ def cross_check(prefix, reads, lines, workdir):
     return CROSS_CHECK
 
 
-# -- 5. where the time goes (--profile) ------------------------------------------
+# -- 5. glocal screen against plain and native ------------------------------------
+def make_glocal_case(R, L, G, rs):
+    """Rescue-like screen jobs: the read classes of tests/test_kernels_sw.py
+    (exact, 2 mismatches, a 1-bp deletion, random, a shorter read in a
+    shorter window) at reads of L and windows of G bases."""
+    reads = np.zeros((R, L), np.int32)
+    lens = np.full(R, L, np.int32)
+    wins = rs.randint(0, 4, (R, G)).astype(np.int32)
+    wlens = np.full(R, G, np.int32)
+    for j in range(R):
+        kind = j % 5
+        s = rs.randint(0, G - L - 1)
+        if kind == 0:
+            reads[j] = wins[j, s:s + L]
+        elif kind == 1:
+            reads[j] = wins[j, s:s + L]
+            q = rs.choice(L, 2, replace=False)
+            reads[j, q] = (reads[j, q] + 1) % 4
+        elif kind == 2:
+            w = wins[j, s:s + L + 1]
+            cut = rs.randint(5, L - 5)
+            reads[j] = np.concatenate([w[:cut], w[cut + 1:]])
+        elif kind == 3:
+            reads[j] = rs.randint(0, 4, L)
+        else:
+            lens[j], wlens[j] = L - 7, G - 13
+            s = rs.randint(0, G - 13 - (L - 7))
+            reads[j, :L - 7] = wins[j, s:s + L - 7]
+    return reads, lens, wins, wlens
+
+
+def glocal_phase(seed):
+    """Kernel == plain exactly (cost and end) and == the native DP's cost;
+    median ms of kernel and plain in turns, host ms of the native DP."""
+    import torch
+    from hsa_tpu_torch import refpack
+    from hsa_tpu_torch.kernels import sw
+    R, L, G = GLOCAL["R"], GLOCAL["L"], GLOCAL["G"]
+    arrs = make_glocal_case(R, L, G, np.random.RandomState(seed + 2))
+    args = (*(torch.from_numpy(a).cuda() for a in arrs), *SCORES)
+    run_k = lambda: sw.glocal_screen(*args)             # noqa: E731
+    run_p = lambda: sw.glocal_screen_plain(*args)       # noqa: E731
+    (ck, ek), (cp, ep) = run_k(), run_p()
+    torch.cuda.synchronize()
+    err = int(torch.stack([(ck.long() - cp.long()).abs().max(),
+                           (ek.long() - ep.long()).abs().max()]).max())
+    if err:
+        fail(f"glocal_screen differs from the plain version (max |err| {err})")
+    ms, plain_ms = time_turns([run_k, run_p])
+    reads, lens, wins, wlens = arrs
+    native = (reads.astype(np.uint8), np.arange(R, dtype=np.int64) * L, lens,
+              wins.astype(np.int8).reshape(-1),
+              np.arange(R, dtype=np.int64) * G, wlens, *SCORES)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ncost = refpack.glocal_batch(*native)[0]
+        times.append(time.perf_counter() - t0)
+    if not np.array_equal(ncost, ck.cpu().numpy()):
+        fail("glocal_screen's costs differ from the native glocal_batch's")
+    native_ms = statistics.median(times) * 1e3
+    print(f"glocal_screen R={R} L={L} G={G}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, native glocal_batch (host, with traceback) "
+          f"{native_ms:.4f} ms; max |err| {err}; costs equal the native's")
+    return dict(ms=ms, plain_ms=plain_ms, native_ms=native_ms,
+                max_abs_err=err, shape=f"R={R} L={L} G={G}")
+
+
+# -- 6. paired-end main path --------------------------------------------------------
+def make_pairs(genome, n_pairs, seed):
+    """Pairs of PE_LEN bp from fragments of about N(PE_ISIZE, PE_ISIZE_SD)
+    bp with 2 substitutions each, end 2 reverse-complemented
+    (benchmarks/config4_paired.py); every HEAVY_EVERY-th pair's end 2 has
+    HEAVY_SUBS more substitutions.  Returns (ends 1, ends 2, origins
+    [n, 2] of both ends' leftmost bases)."""
+    rs = np.random.RandomState(seed + 3)
+    r1s, r2s = [], []
+    origin = np.empty((n_pairs, 2), np.int64)
+    for j in range(n_pairs):
+        isize = int(np.clip(round(rs.normal(PE_ISIZE, PE_ISIZE_SD)),
+                            PE_LEN + 1, 2 * PE_ISIZE))
+        p = rs.randint(0, len(genome) - isize)
+        frag = genome[p:p + isize].copy()
+        q = rs.randint(0, isize, size=2)
+        frag[q] = (frag[q] + rs.randint(1, 4, size=2)) % 4
+        r2 = frag[-PE_LEN:].copy()
+        if j % HEAVY_EVERY == HEAVY_EVERY - 1:
+            q = rs.choice(PE_LEN, HEAVY_SUBS, replace=False)
+            r2[q] = (r2[q] + rs.randint(1, 4, size=HEAVY_SUBS)) % 4
+        r1s.append(frag[:PE_LEN])
+        r2s.append(revcomp(r2))
+        origin[j] = (p, p + isize - PE_LEN)
+    return r1s, r2s, origin
+
+
+def write_pairs(workdir, tag, r1s, r2s):
+    fq1 = os.path.join(workdir, f"{tag}_1.fq")
+    fq2 = os.path.join(workdir, f"{tag}_2.fq")
+    write_fastq(fq1, r1s, "q")
+    write_fastq(fq2, r2s, "q")
+    return fq1, fq2
+
+
+def run_align_pe(prefix, fq1, fq2, out_dir, device, tag):
+    """``hsa_tpu_torch.cli align-pe --engine beam`` at the CLI defaults.
+    Returns (SAM lines, header included; metrics dict)."""
+    from hsa_tpu_torch import cli
+    sam = os.path.join(out_dir, f"{tag}.sam")
+    met = os.path.join(out_dir, f"{tag}_metrics.json")
+    if cli.main(["align-pe", prefix, fq1, fq2, "--engine", "beam", "--device",
+                 device, "-f", sam, "--metrics", met]) != 0:
+        fail(f"align-pe --device {device} failed")
+    with open(sam) as fh:
+        lines = fh.read().split("\n")
+    with open(met) as fh:
+        return lines[:-1], json.load(fh)
+
+
+def check_pairs(records, origin):
+    """(fraction of mapped ends and of mapped ends within 2 bp of their
+    origin, among the pairs without the heavy mate; fraction of heavy
+    mates placed by rescue within 2 bp of their origin)."""
+    n = len(origin)
+    if len(records) != 2 * n:
+        fail(f"{len(records)} SAM records for {n} pairs")
+    ends = mapped = placed = heavy = rescued = 0
+    for j in range(n):
+        for e, first in ((0, 0x40), (1, 0x80)):
+            f = records[2 * j + e].split("\t")
+            flag = int(f[1])
+            if f[0] != f"q{j}" or not flag & first:
+                fail(f"SAM record {2 * j + e} is {f[0]} flag {flag}")
+            near = not flag & 4 and abs(int(f[3]) - 1 - origin[j, e]) <= 2
+            if j % HEAVY_EVERY == HEAVY_EVERY - 1:
+                if e == 1:
+                    heavy += 1
+                    rescued += near and "XT:Z:M" in f[11:]
+                continue
+            ends += 1
+            mapped += not flag & 4
+            placed += near
+    return mapped / ends, placed / max(mapped, 1), rescued / heavy
+
+
+def pe_cross_check(prefix, r1s, r2s, workdir):
+    """The first PE_CROSS_CHECK pairs through ``align-pe`` on the card and
+    on the CPU (the plain path): the SAMs must be byte-equal, and hold a
+    rescued mate."""
+    fq1, fq2 = write_pairs(workdir, "pairs_cross_check", r1s[:PE_CROSS_CHECK],
+                           r2s[:PE_CROSS_CHECK])
+    card, _ = run_align_pe(prefix, fq1, fq2, workdir, "cuda", "pe_cross_cuda")
+    cpu, _ = run_align_pe(prefix, fq1, fq2, workdir, "cpu", "pe_cross_cpu")
+    if cpu != card:
+        bad = next(j for j in range(max(len(cpu), len(card)))
+                   if cpu[j:j + 1] != card[j:j + 1])
+        fail(f"align-pe on the CPU differs from the card at line {bad}:\n"
+             f"  card: {card[bad:bad + 1]}\n  cpu:  {cpu[bad:bad + 1]}")
+    if not any("\tXT:Z:M" in line for line in card):
+        fail("the cross-check's SAM holds no rescued mate")
+    return PE_CROSS_CHECK
+
+
+# -- 8. where the time goes (--profile) ------------------------------------------
 def profile_phase(prefix, reads, opt_dict, fq, workdir):
     import torch
     from torch.autograd import DeviceType
@@ -359,6 +558,54 @@ def profile_phase(prefix, reads, opt_dict, fq, workdir):
               f"reads/s), sequential sum {seq:.6f} s")
 
 
+def profile_pe_phase(prefix, r1s, r2s, fq1, fq2, workdir):
+    """align-pe's stream phases one after another per batch (search;
+    readback + hits + locate; pairing + rescue + SAM, with the rescue
+    timed apart), then ``align-pe --device cuda`` twice more, warm."""
+    import torch
+    from hsa_tpu_torch.pipeline import Aligner
+    al = Aligner(prefix, engine="beam", device="cuda")
+    rescue_s = []
+    rescue = al._rescue
+
+    def timed_rescue(*args):             # the rescue, drained and timed
+        t0 = time.perf_counter()
+        out = list(rescue(*args))
+        torch.cuda.synchronize()
+        rescue_s.append(time.perf_counter() - t0)
+        return iter(out)
+    al._rescue = timed_rescue
+    seq = 0.0
+    for s in range(0, len(r1s), BATCH):
+        r1, r2 = r1s[s:s + BATCH], r2s[s:s + BATCH]
+        rescue_s.clear()
+        t = [time.perf_counter()]
+        h = al._align_pe_device(r1, r2)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        occ, trunc, c2x = al._align_pe_occ(h)
+        t.append(time.perf_counter())
+        al._resolve_pe(r1, r2, None, None, None, occ, trunc, c2x,
+                       read_offset=s, emit="sam")
+        t.append(time.perf_counter())
+        d = np.diff(t)
+        seq += t[-1] - t[0]
+        print(f"sequential pair batch at {s}: search {d[0]:.6f} s, readback "
+              f"+ hits + locate {d[1]:.6f} s, pairing + rescue + SAM "
+              f"{d[2]:.6f} s (rescue of {al.last_rescue_jobs} jobs "
+              f"{sum(rescue_s):.6f} s), sum {t[-1] - t[0]:.6f} s")
+    print(f"sequential: {len(r1s)} pairs in {seq:.6f} s "
+          f"({len(r1s) / seq:.1f} pairs/s)")
+    del al
+    for rep in range(2):
+        _, met = run_align_pe(prefix, fq1, fq2, workdir, "cuda",
+                              f"stream_pe{rep}")
+        w = align_window(met)
+        print(f"warm align-pe --device cuda, run {rep}: {len(r1s)} pairs in "
+              f"an align window of {w:.3f} s ({len(r1s) / w:.1f} pairs/s), "
+              f"sequential sum {seq:.6f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -373,13 +620,13 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         import hsa_tpu_torch  # noqa: F401
-        from hsa_tpu_torch.kernels import select
+        from hsa_tpu_torch.kernels import select, sw
     except ImportError as e:
         fail(f"the repository is not beside this script ({e})")
 
     phase("1. device and build")
     device_info()
-    build_kernel()
+    build_kernels()
 
     phase("2. select_topk kernel against its plain version on the card")
     shapes = kernel_phase(a.seed)
@@ -393,9 +640,11 @@ def main():
     print(f"index build seconds: {index_s if index_s is not None else 'cached'}"
           f" ({GENOME_BP} bp)")
     reads, origin = make_reads(genome, N_READS, a.seed)
+    r1s, r2s, pe_origin = make_pairs(genome, PE_PAIRS, a.seed)
     del genome
     fq = os.path.join(workdir, f"reads_{GENOME_BP}_s{a.seed}.fq")
     write_fastq(fq, reads)
+    fq1, fq2 = write_pairs(workdir, f"pairs_{GENOME_BP}_s{a.seed}", r1s, r2s)
     print(f"genome + reads ready in {time.perf_counter() - t0:.3f} s")
     torch.cuda.synchronize()
     select.KERNEL.launches = 0
@@ -434,21 +683,86 @@ def main():
     print(f"cross-check: align --device cpu on the first {n} reads gives a "
           f"SAM byte-equal to the card's ({time.perf_counter() - t0:.3f} s)")
 
-    if a.profile:
-        phase("5. where the time goes (warm card)")
-        profile_phase(prefix, reads, opt, fq, workdir)
+    phase("5. glocal_screen kernel against its plain version and the "
+          "native DP")
+    glocal = glocal_phase(a.seed)
 
-    sum_ms = sum(s["ms"] for s in shapes)
-    sum_plain = sum(s["plain_ms"] for s in shapes)
+    phase("6. paired-end main path: align-pe --engine beam --device cuda")
+    torch.cuda.synchronize()
+    select.KERNEL.launches = sw.KERNEL.launches = 0
+    pe_lines, pe_met = run_align_pe(prefix, fq1, fq2, workdir, "cuda",
+                                    "smoke_pe")
+    pe_select, pe_glocal = select.KERNEL.launches, sw.KERNEL.launches
+
+    phase("7. paired-end checks")
+    pe_batches = pe_met.get("batches", [])
+    for i, b in enumerate(pe_batches):
+        print(f"batch {i}: {b['n'] // 2} pairs, {b['rescue_jobs']} rescue "
+              f"jobs, yield waited for {b['wait_s']:.6f} s")
+    w = align_window(pe_met)
+    print(f"align-pe: {PE_PAIRS} pairs in an align window of {w:.3f} s "
+          f"({PE_PAIRS / w:.1f} pairs/s, first run); index load "
+          f"{pe_met['t_index_load_s']} s")
+    pe_mapped, pe_placed, rescued = check_pairs(
+        [l for l in pe_lines if not l.startswith("@")], pe_origin)
+    print(f"plain pairs: mapped ends {pe_mapped:.6f} (min {PE_MAPPED_MIN}), "
+          f"placed within 2 bp {pe_placed:.6f} (min {PE_PLACED_MIN}); heavy "
+          f"mates rescued (XT:Z:M) at their origin {rescued:.6f} (min "
+          f"{RESCUED_MIN}); overflow reads "
+          f"{pe_met.get('beam_overflow_reads', 0)}")
+    pe_opt = pe_met["config"]["opt"]
+    if pe_met["config"]["batch"] != BATCH or \
+            len(pe_batches) != -(-PE_PAIRS // BATCH):
+        fail(f"align-pe ran batches of {pe_met['config']['batch']} pairs, "
+             f"not {BATCH}")
+    pe_steps = PE_LEN + pe_opt["max_gapo"] + pe_opt["max_gape"]
+    want = 2 * pe_steps * len(pe_batches)
+    want_g = sum(b["rescue_jobs"] > 0 for b in pe_batches)
+    print(f"launches on the paired-end path: select_topk {pe_select} "
+          f"(expected 2 x {pe_steps} steps x {len(pe_batches)} batches = "
+          f"{want}); glocal_screen {pe_glocal} (expected one per batch with "
+          f"rescue jobs = {want_g})")
+    if pe_mapped < PE_MAPPED_MIN:
+        fail(f"mapped end fraction {pe_mapped} < {PE_MAPPED_MIN}")
+    if pe_placed < PE_PLACED_MIN:
+        fail(f"placed end fraction {pe_placed} < {PE_PLACED_MIN}")
+    if rescued < RESCUED_MIN:
+        fail(f"rescued heavy-mate fraction {rescued} < {RESCUED_MIN}")
+    if pe_select != want:
+        fail(f"select_topk launched {pe_select} times on align-pe, "
+             f"expected {want}")
+    if pe_glocal == 0 or pe_glocal != want_g:
+        fail(f"glocal_screen launched {pe_glocal} times, expected {want_g} "
+             "(and more than 0)")
+    t0 = time.perf_counter()
+    n = pe_cross_check(prefix, r1s, r2s, workdir)
+    print(f"cross-check: align-pe on {n} pairs gives byte-equal SAMs on "
+          f"cuda and cpu ({time.perf_counter() - t0:.3f} s)")
+
+    if a.profile:
+        phase("8. where the time goes (warm card)")
+        profile_phase(prefix, reads, opt, fq, workdir)
+        profile_pe_phase(prefix, r1s, r2s, fq1, fq2, workdir)
+
     print(json.dumps({"kernels": [{
         "name": "select_topk", "route": "cuda",
         "source": "hsa_tpu_torch/csrc/select_topk.cu",
-        "replaces": "hsa_tpu/kernels/select.py:50",
-        "launches": launches,
+        "replaces": "hsa_tpu/kernels/select.py:51",
+        "launches": launches + pe_select,
+        "launches_by_path": {"align": launches, "align-pe": pe_select},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "ms": sum_ms, "plain_ms": sum_plain,
+        "ms": sum(s["ms"] for s in shapes),
+        "plain_ms": sum(s["plain_ms"] for s in shapes),
         "ms_per": "one beam step: frontier select + hit merge",
-        "shapes": shapes}]}))
+        "shapes": shapes}, {
+        "name": "glocal_screen", "route": "cuda",
+        "source": "hsa_tpu_torch/csrc/glocal_screen.cu",
+        "replaces": "hsa_tpu/kernels/sw.py:114",
+        "launches": pe_glocal,
+        "launches_by_path": {"align-pe": pe_glocal},
+        "max_abs_err": glocal["max_abs_err"], "ms": glocal["ms"],
+        "plain_ms": glocal["plain_ms"], "native_ms": glocal["native_ms"],
+        "ms_per": "one screen of all rescue jobs", "shape": glocal["shape"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

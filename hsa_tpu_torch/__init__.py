@@ -6,11 +6,13 @@ layer (``config``, ``alphabet``, ``refpack``, ``io``, ``resolve``,
 ``metrics``, the numpy index layout, ``ReadBatch`` and ``build_index``), so
 both packages read and write the same index directory.
 
-Covered so far: single-end alignment through the exhaustive beam engine
-(``engine="beam"``), from index to SAM, with the top-K selection of every
-beam step as a hand-written CUDA kernel (``kernels/select.py``,
-``csrc/select_topk.cu``).  Every function takes an explicit ``device``; on
-the CPU the kernel's plain PyTorch version runs instead, which is what the
+Covered so far: single-end and paired-end alignment through the exhaustive
+beam engine (``engine="beam"``), from index to SAM.  Both Pallas kernels of
+``hsa_tpu`` are hand-written CUDA kernels: the top-K selection of every beam
+step (``kernels/select.py``, ``csrc/select_topk.cu``) and the glocal DP that
+screens the paired-end mate rescues (``kernels/sw.py``,
+``csrc/glocal_screen.cu``).  Every function takes an explicit ``device``; on
+the CPU each kernel's plain PyTorch version runs instead, which is what the
 test suite exercises against the JAX reference.
 """
 

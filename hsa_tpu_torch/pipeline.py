@@ -1,10 +1,13 @@
-"""Single-end alignment pipeline on a torch device: index to SAM.
+"""Single- and paired-end alignment pipeline on a torch device: index to SAM.
 
 Counterpart of ``hsa_tpu/pipeline.py``'s beam route: the host streams read
 batches, the device runs the both-strand width pass and beam search, the
 host reads the hits back, locates them on the device and resolves records.
-The index directory format and the host layer (``ReadBatch``,
-``collect_occurrences``, ``resolve_from_occ_arrays``) are
+Paired ends search both ends as one batch and resolve through the shared
+paired resolver, whose mate rescue screens on the device
+(:mod:`hsa_tpu_torch.resolve.sampe`).  The index directory format and the
+host layer (``ReadBatch``, ``collect_occurrences``,
+``resolve_from_occ_arrays``, ``resolve_pe_from_occ_arrays``) are
 ``hsa_tpu``'s own, imported as they are.
 
 Only ``engine="beam"`` with a single beam width is ported.  The pigeonhole
@@ -22,14 +25,18 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from hsa_tpu import alphabet, refpack
-from hsa_tpu.config import AlnOpt, SamseOpt
+from hsa_tpu import alphabet
+from hsa_tpu.config import AlnOpt, PEOpt, SamseOpt
 from hsa_tpu.index.layout import DeviceIndex
 from hsa_tpu.io.fastx import RefMeta
 from hsa_tpu.pipeline import ReadBatch
+from hsa_tpu.refpack import unpack_2bit
 from hsa_tpu.resolve.samse import collect_occurrences, resolve_from_occ_arrays
+from hsa_tpu.resolve.sampe import resolve_pe_from_occ_arrays
 
 from .index.layout import to_device
+from .refpack import ensure_refpack
+from .resolve.sampe import bind_rescue, rescue_batch
 from .search import fm
 from .search.adaptive import finalize_any
 from .search.beam import (LADDER_TODO, pack_read_batch, result_to_hits,
@@ -59,6 +66,7 @@ class Aligner:
     def __init__(self, index_dir: str, opt: AlnOpt | None = None,
                  ladder=None, engine: str = "beam", device="cuda"):
         _check_route(engine, ladder)
+        ensure_refpack()
         if not os.path.isdir(index_dir) and os.path.isdir(index_dir + ".hsa"):
             index_dir = index_dir + ".hsa"
         self.index_dir = index_dir
@@ -72,7 +80,7 @@ class Aligner:
         with open(os.path.join(index_dir, "text.pac"), "rb") as fh:
             n = np.frombuffer(fh.read(8), np.int64)[0]
             packed = np.frombuffer(fh.read(), np.uint8)
-        self.text = refpack.unpack_2bit(packed, int(n)).astype(np.int8)
+        self.text = unpack_2bit(packed, int(n)).astype(np.int8)
         self.dev = to_device(self.di, device)
         self.device = self.dev.device
 
@@ -84,6 +92,7 @@ class Aligner:
         optional RefMeta; a single-sequence meta is synthesized when
         omitted)."""
         _check_route(engine, ladder)
+        ensure_refpack()
         self = cls.__new__(cls)
         self.index_dir = None
         self.opt = opt or AlnOpt()
@@ -187,28 +196,111 @@ class Aligner:
         yielded as soon as it is resolved: the JAX stream's fallback
         pooling has nothing to pool here.
         """
-        ex = ThreadPoolExecutor(max_workers=STREAM_DEPTH)
-        try:
-            pending = deque()
-            it = iter(batches)
-            exhausted = False
-            while True:
-                while not exhausted and len(pending) < STREAM_DEPTH:
-                    nxt = next(it, None)
-                    if nxt is None:
-                        exhausted = True
-                        break
-                    s, bn, br, bq = nxt
-                    pending.append((s, bn, bq, ex.submit(
-                        self._align_device, br, beam_width=beam_width,
-                        max_hits=max_hits)))
-                if not pending:
-                    break
-                ps, pn, pq, pfut = pending.popleft()
-                handle = pfut.result()
-                occ, trunc, c2x = self._align_occ(handle)
-                yield ps, self._resolve_occ(handle[1], pn, pq, occ, trunc,
-                                            c2x, read_offset=ps, sopt=sopt,
+        def search(b):
+            return self._align_device(b[2], beam_width=beam_width,
+                                      max_hits=max_hits)
+
+        def finish(b, handle):
+            return b[0], self._align_finish(handle, b[1], b[3],
+                                            read_offset=b[0], sopt=sopt,
                                             emit=emit)
-        finally:
-            ex.shutdown(wait=True)
+        return _pipelined(batches, search, finish)
+
+    # -- paired ends ---------------------------------------------------------
+    def align_pe(self, reads1, reads2, names=None, quals1=None, quals2=None, *,
+                 read_offset: int = 0, beam_width=None, max_hits=32,
+                 peopt: PEOpt | None = None, emit: str = "records"):
+        """Paired ends -> interleaved [rec1, rec2, ...] records, or
+        (lines, flags) with ``emit="sam"``; ``hsa_tpu``'s ``align_pe`` on
+        the beam route."""
+        h = self._align_pe_device(reads1, reads2, beam_width=beam_width,
+                                  max_hits=max_hits)
+        return self._align_pe_finish(h, reads1, reads2, names, quals1, quals2,
+                                     read_offset=read_offset, peopt=peopt,
+                                     emit=emit)
+
+    def _align_pe_device(self, reads1, reads2, *, beam_width=None,
+                         max_hits=32):
+        """Phase A of the paired flow: both ends, end 1 then end 2, in one
+        both-strand beam search of 2B reads."""
+        return ("beam", len(reads1), self.search_batch_device(
+            list(reads1) + list(reads2), beam_width=beam_width,
+            max_hits=max_hits))
+
+    def _align_pe_occ(self, handle, peopt: PEOpt | None = None):
+        """Handle -> (occ dict in the [0, 2B) read space, trunc[2B],
+        c2x[2B]), the beam branch of ``hsa_tpu``'s ``_align_pe_occ``."""
+        B = handle[1]
+        cap = min((peopt or PEOpt()).max_occ, 256)
+        hf, hr = self.hits_from_device(handle[2])
+        occs, trunc = collect_occurrences(hf, hr, self.locate_fn, cap)
+        return (occ_lists_to_arrays(occs), np.asarray(trunc, bool),
+                np.zeros(2 * B, np.int64))
+
+    def _align_pe_finish(self, handle, reads1, reads2, names=None,
+                         quals1=None, quals2=None, *, read_offset: int = 0,
+                         peopt: PEOpt | None = None, emit: str = "records"):
+        """Phase B of the paired flow: readback, locate, pairing and mate
+        rescue (on this aligner's device), records."""
+        occ, trunc, c2x = self._align_pe_occ(handle, peopt)
+        return self._resolve_pe(reads1, reads2, names, quals1, quals2, occ,
+                                trunc, c2x, read_offset=read_offset,
+                                peopt=peopt, emit=emit)
+
+    def _resolve_pe(self, reads1, reads2, names, quals1, quals2, occ, trunc,
+                    c2x, *, read_offset: int = 0, peopt: PEOpt | None = None,
+                    emit: str = "records"):
+        """The shared ``resolve_pe_from_occ_arrays`` with this aligner's
+        mate rescue (:meth:`_rescue`) in place of the reference's."""
+        names = names or [f"pair{read_offset + i}" for i in range(len(reads1))]
+        self.last_rescue_jobs = 0
+        resolve = bind_rescue(resolve_pe_from_occ_arrays, self._rescue)
+        return resolve(self.text, self.meta, reads1, reads2, names, quals1,
+                       quals2, occ, self.opt, peopt, read_offset=read_offset,
+                       trunc=trunc, c2x=c2x, emit=emit)
+
+    def _rescue(self, text, meta, jobs, rlim, opt):
+        """``_rescue_batch`` of the shared resolver, run on this device;
+        notes the batch's job count in ``last_rescue_jobs``."""
+        self.last_rescue_jobs = len(jobs)
+        return rescue_batch(text, meta, jobs, rlim, opt, self.device)
+
+    def align_pe_stream(self, batches, *, beam_width=None, max_hits=32,
+                        peopt: PEOpt | None = None, emit: str = "records"):
+        """Pipelined paired alignment over (start, names, reads1, quals1,
+        reads2, quals2) batches, depth ``STREAM_DEPTH`` as in
+        :meth:`align_stream`; yields (start, payload) in input order.  On
+        the beam route nothing falls back, so nothing is staged: each batch
+        is yielded once it is resolved."""
+        def search(b):
+            return self._align_pe_device(b[2], b[4], beam_width=beam_width,
+                                         max_hits=max_hits)
+
+        def finish(b, handle):
+            s, n1, r1, q1, r2, q2 = b
+            return s, self._align_pe_finish(handle, r1, r2, n1, q1, q2,
+                                            read_offset=s, peopt=peopt,
+                                            emit=emit)
+        return _pipelined(batches, search, finish)
+
+
+def _pipelined(batches, search, finish):
+    """Up to ``STREAM_DEPTH`` batches go through ``search`` ahead on worker
+    threads while the main thread runs ``finish(batch, handle)`` on the
+    oldest; yields its results in input order."""
+    ex = ThreadPoolExecutor(max_workers=STREAM_DEPTH)
+    try:
+        pending = deque()
+        it = iter(batches)
+        while True:
+            while len(pending) < STREAM_DEPTH:
+                b = next(it, None)
+                if b is None:
+                    break
+                pending.append((b, ex.submit(search, b)))
+            if not pending:
+                break
+            b, fut = pending.popleft()
+            yield finish(b, fut.result())
+    finally:
+        ex.shutdown(wait=True)
