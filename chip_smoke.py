@@ -18,9 +18,17 @@ any result.
    parallel, with their times.
 2. select_topk against plain, on the card, at the beam step's two shapes
    (frontier ``[576, 32768]`` K=64 with window, hit merge ``[352, 32768]``
-   K=32; three payloads each; seeded): valid keys and payloads, the drop
-   row and nvalid must be exactly equal.  Median ms of both versions,
-   timed in turns with CUDA events.
+   K=32; three payloads each; seeded, ~30% of the keys valid): valid keys
+   and payloads, the drop row and nvalid must be exactly equal.  Median ms
+   of the kernel, of the plain version (one stable ``torch.sort`` + three
+   gathers) and of the library yardstick (``torch.topk`` + three gathers,
+   called nowhere in the port), timed in turns with CUDA events, beside the
+   bound that the script computes from the case's own valid counts (4
+   compulsory bytes per picked payload word) and the looser one that charges
+   a 32-byte sector per pick, with the kernel's ratio to each.  Then
+   the edges of the kernel's compaction and rank, each held exactly against
+   plain and timed: every key valid; no valid key in every third column;
+   a width that is no multiple of 32.
 3. Single-end main path through the CLI, in process: an i.i.d. genome of
    46,709,983 bp (human chr21 scale) from ``--seed``; ``hsa_tpu_torch.cli
    index`` (which builds the native index library and prints its time;
@@ -59,11 +67,16 @@ any result.
    single-end batch's stream phases (search; readback + hits + locate;
    resolve) one after another with the device synchronised between them;
    one batch's search under ``torch.profiler`` (kernel launches, host
-   time in torch ops, device busy time, idle share, the top kernels, peak
-   memory); ``align --device cuda`` twice more, warm, against the
+   time in torch ops, device busy time, idle share, the top kernels and
+   select_topk's own, peak memory); ``align --device cuda`` twice more, warm, against the
    sequential sum; then the same per-batch phases and warm runs for
    ``align-pe``, with the mate rescue timed apart.
-9. Prints the kernel table as one JSON line, then, as the last line,
+9. Prints the kernel table as one JSON line (per kernel: launches on the
+   main paths, max |err|, ms, plain_ms, library_ms, and bound_ms, the least
+   time the card could take: the larger of the bytes the function must move
+   over 3.35 TB/s and the integer operations its recurrence needs, 11 per
+   cell for the glocal DP, over 132 SMs x 64 int32 lanes x the card's
+   maximum SM clock), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -93,6 +106,19 @@ PE_PAIRS, PE_LEN, PE_ISIZE, PE_ISIZE_SD = 32_768, 150, 400, 30
 HEAVY_EVERY, HEAVY_SUBS = 8, 12
 PE_CROSS_CHECK = 512
 PE_MAPPED_MIN, PE_PLACED_MIN, RESCUED_MIN = 0.99, 0.99, 0.95
+# the card's peaks for the bounds: device memory rate (H100 SXM data sheet)
+# and int32 lanes; the int32 rate is lanes x the maximum SM clock
+HBM_BYTES_S = 3.35e12
+INT32_LANES = 132 * 64
+# int32 operations that one cell of the glocal DP needs, from the recurrence
+# itself (hsa_tpu_torch/kernels/sw.py:glocal_screen_plain), not from any
+# kernel's instruction count:
+#   sub   = (read base != window base) ? s_mm : 0        compare, select    2
+#   m'    = min(m[j-1], ins[j-1], del[j-1]) + sub        2 min, 1 add       3
+#   ins'  = min(m[j] + s_gapo, ins[j] + s_gape)          2 add, 1 min       3
+#   del'  = ramp[j] + prefixmin(m'[j'] - ramp[j'] + c)   add, min, add      3
+# (the ramp j * s_gape and the constant are per column, the N test per row)
+GLOCAL_OPS_PER_CELL = 11
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -117,6 +143,15 @@ def device_info():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}")
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0 or not r.stdout.strip():
+        fail(f"nvidia-smi failed: {r.stderr.strip()}")
+    mhz = float(r.stdout.split()[0])
+    print(f"maximum SM clock {mhz:.0f} MHz: int32 peak "
+          f"{INT32_LANES * mhz * 1e6:.4e} operations/s")
+    return INT32_LANES * mhz * 1e6
 
 
 def build_kernels():
@@ -137,13 +172,16 @@ def build_kernels():
 
 
 # -- 2. kernel against plain ---------------------------------------------------
-def make_select_case(C, B, window, rs, device):
-    """Beam-like select inputs: unique row-tagged keys, ~30% valid."""
+def make_select_case(C, B, window, rs, device, valid=0.3, dead_every=0):
+    """Beam-like select inputs: unique row-tagged keys, a fraction ``valid``
+    of them valid; with ``dead_every``, no valid key in every such column."""
     import torch
     from hsa_tpu_torch.kernels.select import KEY_SH, SENT
     row = np.arange(C, dtype=np.int64)[:, None]
     score = rs.randint(0, 40, (C, B)).astype(np.int64)
-    key = np.where(rs.rand(C, B) < 0.3, (score << KEY_SH) | row, SENT | row)
+    key = np.where(rs.rand(C, B) < valid, (score << KEY_SH) | row, SENT | row)
+    if dead_every:
+        key[:, ::dead_every] = SENT | row
     pays = [rs.randint(-2 ** 31, 2 ** 31, (C, B), dtype=np.int64)
             for _ in range(3)]
     win = rs.randint(5, 40, B) if window else None
@@ -197,24 +235,87 @@ def time_turns(fns, rounds=15, warm=3):
     return [statistics.median(t) for t in times]
 
 
-def kernel_phase(seed):
+def select_library(key, pays, K, window=None):
+    """The library yardstick: one ``torch.topk`` of the K smallest keys per
+    column (window applied first) and a gather per payload.  Timed here,
+    called nowhere in the port."""
+    import torch
+    from hsa_tpu_torch.kernels.select import KEY_SH, SENT
+    if window is not None:
+        key = torch.where((key >> KEY_SH) > window.reshape(1, -1), key | SENT,
+                          key)
+    top, idx = torch.topk(key, K, dim=0, largest=False, sorted=True)
+    return top, tuple(p.gather(0, idx) for p in pays)
+
+
+def select_bound_ms(key, K, n_pay, window, int32_ops_s):
+    """(bound ms, what binds it, sector-granular bound ms) of one select on
+    this input.  Bytes: the keys and the window read once, the K + 1 key rows
+    and K rows per payload written once, and per column min(nvalid, K) picks
+    per payload of 4 bytes each, the compulsory traffic (never more than the
+    payload matrix itself).  Operations: one validity test per key and, per
+    column, its valid keys against the running K-th best.  The third value
+    charges each pick a whole 32-byte sector instead, as the memory system
+    moves it when neighbouring columns pick different rows: a looser bound,
+    printed beside the first."""
+    import torch
+    from hsa_tpu_torch.kernels.select import KEY_SH, SENT
+    C, B = key.shape
+    k = key if window is None else torch.where(
+        (key >> KEY_SH) > window.reshape(1, B), key | SENT, key)
+    picks = int((k < SENT).sum(dim=0).clamp(max=K).sum())
+    fixed = (C * B * 4 + (B * 4 if window is not None else 0)
+             + (K + 1 + n_pay * K) * B * 4)
+    ops = 2 * C * B + int((k < SENT).sum())
+    t_ops = ops / int32_ops_s
+    t_bytes, t_sector = ((fixed + n_pay * min(picks * g, C * B * 4))
+                         / HBM_BYTES_S for g in (4, 32))
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            max(t_sector, t_ops) * 1e3)
+
+
+def kernel_phase(seed, int32_ops_s):
     import torch
     from hsa_tpu_torch.kernels import select
     rs = np.random.RandomState(seed)
+    B = FRONTIER["B"]
+    cases = [dict(FRONTIER, name="frontier"), dict(MERGE, name="merge"),
+             dict(FRONTIER, name="edge: every key valid", window=False,
+                  valid=1.0),
+             dict(MERGE, name="edge: no valid key in every third column",
+                  window=True, dead_every=3),
+             dict(FRONTIER, name="edge: width no multiple of 32", B=B - 19)]
     shapes = []
-    for shp in (FRONTIER, MERGE):
-        C, B, K, window = shp["C"], shp["B"], shp["K"], shp["window"]
-        key, pays, win = make_select_case(C, B, window, rs, "cuda")
+    for case in cases:
+        C, B, K, window = case["C"], case["B"], case["K"], case["window"]
+        key, pays, win = make_select_case(
+            C, B, window, rs, "cuda", valid=case.get("valid", 0.3),
+            dead_every=case.get("dead_every", 0))
         run_k = lambda: select.select_topk(key, pays, K, window=win)   # noqa: E731
         run_p = lambda: select.select_topk_plain(key, pays, K, window=win)  # noqa: E731
-        err = compare_select(run_k(), run_p())
-        torch.cuda.synchronize()
-        ms, plain_ms = time_turns([run_k, run_p])
-        print(f"select_topk [{C}, {B}] K={K} window={window}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, max |err| {err}")
-        shapes.append(dict(shape=f"[{C}, {B}] K={K}" + (" window" if window
-                                                          else ""),
-                           ms=ms, plain_ms=plain_ms, max_abs_err=err))
+        run_l = lambda: select_library(key, pays, K, window=win)       # noqa: E731
+        k_out, p_out = run_k(), run_p()
+        torch.cuda.synchronize()        # a fault in the kernel shows here
+        err = compare_select(k_out, p_out)
+        lib_top = run_l()[0]
+        if not torch.equal(lib_top[lib_top < select.SENT],
+                           p_out[0][:K][p_out[0][:K] < select.SENT]):
+            fail("the library yardstick computes another function")
+        bound_ms, bound_by, sector_ms = select_bound_ms(
+            key, K, len(pays), win, int32_ops_s)
+        ms, plain_ms, library_ms = time_turns([run_k, run_p, run_l])
+        shape = f"[{C}, {B}] K={K}" + (" window" if window else "")
+        print(f"select_topk {case['name']} {shape}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library (topk + gathers) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{ms / bound_ms:.2f}x), with a 32-byte sector per pick "
+              f"{sector_ms:.4f} ms ({ms / sector_ms:.2f}x), max |err| {err}")
+        shapes.append(dict(case=case["name"], shape=shape, ms=ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           bound_sector_ms=sector_ms, max_abs_err=err))
+        del key, pays, win, k_out, p_out, lib_top
     return shapes
 
 
@@ -363,9 +464,12 @@ def make_glocal_case(R, L, G, rs):
     return reads, lens, wins, wlens
 
 
-def glocal_phase(seed):
+def glocal_phase(seed, int32_ops_s):
     """Kernel == plain exactly (cost and end) and == the native DP's cost;
-    median ms of kernel and plain in turns, host ms of the native DP."""
+    median ms of kernel and plain in turns, host ms of the native DP.  The
+    bound: the jobs' own DP cells (read length x window length each) at
+    GLOCAL_OPS_PER_CELL int32 operations, against the bytes of the reads,
+    windows, lengths and results."""
     import torch
     from hsa_tpu_torch import refpack
     from hsa_tpu_torch.kernels import sw
@@ -393,11 +497,19 @@ def glocal_phase(seed):
     if not np.array_equal(ncost, ck.cpu().numpy()):
         fail("glocal_screen's costs differ from the native glocal_batch's")
     native_ms = statistics.median(times) * 1e3
+    cells = int((lens.astype(np.int64) * wlens).sum())
+    t_ops = cells * GLOCAL_OPS_PER_CELL / int32_ops_s
+    t_bytes = sum(a.nbytes for a in arrs) / HBM_BYTES_S + 8 * R / HBM_BYTES_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
     print(f"glocal_screen R={R} L={L} G={G}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, native glocal_batch (host, with traceback) "
-          f"{native_ms:.4f} ms; max |err| {err}; costs equal the native's")
+          f"{native_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {cells} "
+          f"cells x {GLOCAL_OPS_PER_CELL} int32 operations; "
+          f"{ms / bound_ms:.2f}x); max |err| {err}; costs equal the native's")
     return dict(ms=ms, plain_ms=plain_ms, native_ms=native_ms,
-                max_abs_err=err, shape=f"R={R} L={L} G={G}")
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                shape=f"R={R} L={L} G={G}")
 
 
 # -- 6. paired-end main path --------------------------------------------------------
@@ -546,7 +658,9 @@ def profile_phase(prefix, reads, opt_dict, fq, workdir):
     for e in kern:
         per[e.name][0] += 1
         per[e.name][1] += e.time_range.elapsed_us() / 1e3
-    for name, (n, ms) in sorted(per.items(), key=lambda x: -x[1][1])[:8]:
+    ranked = sorted(per.items(), key=lambda x: -x[1][1])
+    own = [kv for kv in ranked[8:] if "select_topk_kernel" in kv[0]]
+    for name, (n, ms) in ranked[:8] + own:      # the top 8 and the port's own
         print(f"  {ms:10.3f} ms {n:6d} launches  {name[:90]}")
     del al, events, kern, prof
 
@@ -625,11 +739,11 @@ def main():
         fail(f"the repository is not beside this script ({e})")
 
     phase("1. device and build")
-    device_info()
+    int32_ops_s = device_info()
     build_kernels()
 
     phase("2. select_topk kernel against its plain version on the card")
-    shapes = kernel_phase(a.seed)
+    shapes = kernel_phase(a.seed, int32_ops_s)
 
     phase("3. main path: index + align --engine beam --device cuda")
     workdir = os.path.join(ROOT, "hsa_tpu_torch", "_build", "smoke")
@@ -685,7 +799,7 @@ def main():
 
     phase("5. glocal_screen kernel against its plain version and the "
           "native DP")
-    glocal = glocal_phase(a.seed)
+    glocal = glocal_phase(a.seed, int32_ops_s)
 
     phase("6. paired-end main path: align-pe --engine beam --device cuda")
     torch.cuda.synchronize()
@@ -744,15 +858,23 @@ def main():
         profile_phase(prefix, reads, opt, fq, workdir)
         profile_pe_phase(prefix, r1s, r2s, fq1, fq2, workdir)
 
+    # per beam step: the frontier select and the hit merge, one launch each
+    step = shapes[:2]
     print(json.dumps({"kernels": [{
         "name": "select_topk", "route": "cuda",
         "source": "hsa_tpu_torch/csrc/select_topk.cu",
         "replaces": "hsa_tpu/kernels/select.py:51",
         "launches": launches + pe_select,
         "launches_by_path": {"align": launches, "align-pe": pe_select},
+        "launches_per_batch": {"align": launches // len(batches),
+                               "align-pe": pe_select // len(pe_batches)},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "ms": sum(s["ms"] for s in shapes),
-        "plain_ms": sum(s["plain_ms"] for s in shapes),
+        "ms": sum(s["ms"] for s in step),
+        "plain_ms": sum(s["plain_ms"] for s in step),
+        "bound_ms": sum(s["bound_ms"] for s in step),
+        "bound_sector_ms": sum(s["bound_sector_ms"] for s in step),
+        "bound_by": step[0]["bound_by"],
+        "library_ms": sum(s["library_ms"] for s in step),
         "ms_per": "one beam step: frontier select + hit merge",
         "shapes": shapes}, {
         "name": "glocal_screen", "route": "cuda",
@@ -760,8 +882,11 @@ def main():
         "replaces": "hsa_tpu/kernels/sw.py:114",
         "launches": pe_glocal,
         "launches_by_path": {"align-pe": pe_glocal},
+        "launches_per_batch": {"align-pe": pe_glocal // len(pe_batches)},
         "max_abs_err": glocal["max_abs_err"], "ms": glocal["ms"],
-        "plain_ms": glocal["plain_ms"], "native_ms": glocal["native_ms"],
+        "plain_ms": glocal["plain_ms"], "bound_ms": glocal["bound_ms"],
+        "bound_by": glocal["bound_by"], "library_ms": None,
+        "native_ms": glocal["native_ms"],
         "ms_per": "one screen of all rescue jobs", "shape": glocal["shape"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """hsa-tpu on PyTorch and CUDA: the port of :mod:`hsa_tpu` to an NVIDIA H100.
 
 The package mirrors ``hsa_tpu``'s layout, one module per counterpart, and
-imports ``torch`` but never ``jax``.  It reuses ``hsa_tpu``'s JAX-free host
-layer (``config``, ``alphabet``, ``refpack``, ``io``, ``resolve``,
-``metrics``, the numpy index layout, ``ReadBatch`` and ``build_index``), so
-both packages read and write the same index directory.
+imports ``torch`` but never ``jax`` and nothing of ``hsa_tpu``: the host
+layer (``config``, ``alphabet``, ``refpack`` with its native sources under
+``csrc/``, ``io``, ``resolve``, ``metrics``, the numpy index layout,
+``ReadBatch`` and ``build_index``) is the port's own copy, under the same
+module names.  The index directory format is unchanged, so both packages
+read and write the same index.
 
 Covered so far: single-end and paired-end alignment through the exhaustive
 beam engine (``engine="beam"``), from index to SAM.  Both Pallas kernels of

@@ -1,7 +1,7 @@
 """Command-line interface of the port (counterpart of ``hsa_tpu/cli.py``).
 
-Subcommands: ``index`` (the shared ``build_index``: both packages read the
-same index directory), ``align`` (fused search + resolution -> SAM) and
+Subcommands: ``index`` (both packages read and write the same index
+directory), ``align`` (fused search + resolution -> SAM) and
 ``align-pe`` (paired ends, with mate rescue), beam engine only.  Options,
 the ``--resume`` manifests and the ``--metrics`` JSON are ``hsa-tpu
 align``'s and ``align-pe``'s; ``--device`` picks the torch device.
@@ -20,17 +20,199 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
+import queue
 import sys
+import threading
 import time
+from itertools import zip_longest
 
-from hsa_tpu.cli import (_add_search_opts, _load_manifest, _opt_from_args,
-                         _prefetch, _save_manifest, _stream_batches,
-                         _zip_lockstep)
-from hsa_tpu.config import PEOpt, SamseOpt
+import numpy as np
+
+from . import alphabet
+from .config import AlnOpt, PEOpt, SamseOpt
+from .io.fastq_fast import FastqBatcher
+from .io.fastx import read_fasta, read_fastq, trim_read_length
+from .io.sam import sam_header
+from .metrics import RunMetrics
+from .pipeline import Aligner, ReadBatch, build_index
+from .refpack import ensure_refpack
 
 SAMPE_TODO = ("sampe: the two-phase paired flow waits for `aln` (ROADMAP.md "
               "Queue A items 3 and 4); use align-pe")
+
+
+def _add_search_opts(p):
+    p.add_argument("-n", dest="n", default=None,
+                   help="max #diff (int) or missing-prob (float, default 0.04)")
+    p.add_argument("-o", dest="max_gapo", type=int, default=1, help="max gap opens")
+    p.add_argument("-e", dest="max_gape", type=int, default=6, help="max gap extensions")
+    p.add_argument("-l", dest="seed_len", type=int, default=32, help="seed length")
+    p.add_argument("-k", dest="max_seed_diff", type=int, default=2, help="max seed diffs")
+    p.add_argument("-M", dest="s_mm", type=int, default=3, help="mismatch penalty")
+    p.add_argument("-O", dest="s_gapo", type=int, default=11, help="gap open penalty")
+    p.add_argument("-E", dest="s_gape", type=int, default=4, help="gap extension penalty")
+    p.add_argument("-q", dest="trim_qual", type=int, default=0,
+                   help="3' quality trimming threshold (0 = off)")
+    p.add_argument("-W", dest="beam_width", type=int, default=None,
+                   help="beam width (frontier capacity per read)")
+    p.add_argument("--ladder", default=None,
+                   help="adaptive beam widths, e.g. 8,64 (overrides -W)")
+    p.add_argument("--batch", type=int, default=16384,
+                   help="reads per device batch")
+
+
+def _opt_from_args(a) -> AlnOpt:
+    opt = AlnOpt(max_gapo=a.max_gapo, max_gape=a.max_gape, seed_len=a.seed_len,
+                 max_seed_diff=a.max_seed_diff, s_mm=a.s_mm, s_gapo=a.s_gapo,
+                 s_gape=a.s_gape, trim_qual=getattr(a, "trim_qual", 0))
+    if a.n is not None:
+        try:
+            opt.max_diff = int(a.n)
+        except ValueError:
+            opt.max_diff = -1
+            opt.fnr = float(a.n)
+    return opt
+
+
+def _apply_trim(reads, quals, trim_qual):
+    if trim_qual < 1:
+        return reads, quals
+    out_r, out_q = [], []
+    for r, q in zip(reads, quals):
+        L = trim_read_length(q, trim_qual)
+        out_r.append(r[:L])
+        out_q.append(q[:L] if q and q != "*" else q)
+    return out_r, out_q
+
+
+def _load_reads(path, limit=None):
+    names, reads, quals = [], [], []
+    it = read_fastq(path) if any(path.endswith(s) for s in
+                                 (".fq", ".fastq", ".fq.gz", ".fastq.gz")) else None
+    if it is not None:
+        for name, seq, qual in it:
+            names.append(name); reads.append(alphabet.encode(seq)); quals.append(qual)
+            if limit and len(reads) >= limit:
+                break
+    else:
+        for name, seq in read_fasta(path):
+            names.append(name); reads.append(alphabet.encode(seq)); quals.append("*")
+            if limit and len(reads) >= limit:
+                break
+    return names, reads, quals
+
+
+def _iter_batches(names, reads, quals, batch):
+    for s in range(0, len(reads), batch):
+        yield s, names[s:s + batch], reads[s:s + batch], quals[s:s + batch]
+
+
+def _prefetch(gen, depth: int = 2):
+    """Run a batch generator on a reader thread, ``depth`` items ahead.
+
+    The stream pipelines device work against host resolution, but the
+    GENERATOR itself (gz inflate + FASTQ parse + name/qual string
+    materialization) otherwise runs serially inside the stream's fill loop
+    on the main thread.
+    """
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    DONE = object()
+
+    def worker():
+        try:
+            for item in gen:
+                q.put(item)
+            q.put(DONE)
+        except BaseException as e:     # surface reader errors in-loop
+            q.put(e)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is DONE:
+            break
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def _zip_lockstep(*iters):
+    """zip() that FAILS when the streams exhaust unevenly.
+
+    Plain zip() silently drops whole trailing batches when mate/.sai
+    files differ by a multiple of the batch size — the per-batch length
+    asserts never fire.  Streaming commands must use this instead.
+    """
+    sentinel = object()
+    for tup in zip_longest(*iters, fillvalue=sentinel):
+        assert sentinel not in tup, \
+            "input streams exhausted unevenly (mate/.sai files do not match)"
+        yield tup
+
+
+def _manifest_path(out):
+    return out + ".manifest.json"
+
+
+def _load_manifest(out, args_key):
+    """Completed-batch count if a matching resume manifest exists, else 0.
+
+    Batch-granular restart (SURVEY.md §5 failure-recovery row): the input
+    stream is resumable by read ordinal, so a crashed run resumes at the
+    first incomplete batch.
+    """
+    if not out or not os.path.exists(_manifest_path(out)):
+        return 0
+    try:
+        with open(_manifest_path(out)) as fh:
+            m = json.load(fh)
+        if m.get("args_key") == args_key:
+            return int(m.get("completed_reads", 0))
+    except Exception:
+        pass
+    return 0
+
+
+def _save_manifest(out, args_key, completed_reads, total):
+    if not out:
+        return
+    with open(_manifest_path(out), "w") as fh:
+        json.dump(dict(args_key=args_key, completed_reads=completed_reads,
+                       total_reads=total), fh)
+
+
+def _stream_batches(path, batch, trim_qual=0):
+    """Yield (start_ordinal, names, reads, quals) batches with bounded RSS.
+
+    FASTQ goes through the native mmap batcher (no per-read Python objects
+    until a batch materializes); FASTA falls back to the simple loader.
+    """
+    if any(path.endswith(s) for s in (".fq", ".fastq", ".fq.gz", ".fastq.gz")):
+        s = 0
+        for names, codes, lens, quals in FastqBatcher(path, batch=batch):
+            lens = np.asarray(lens, np.int32)
+            if trim_qual >= 1:
+                tl = np.fromiter((trim_read_length(q, trim_qual)
+                                  for q in quals), np.int32, len(quals))
+                lens = np.minimum(lens, tl)
+                quals = [q[:l] if q and q != "*" else q
+                         for q, l in zip(quals, lens.tolist())]
+            # trim the [B, max_len=512] parser matrix to the batch's
+            # actual max read length: the packed-word count (and with it
+            # the whole device program width) follows the matrix width,
+            # so a 100bp batch in a 512-wide matrix would run a 4x-wider
+            # search
+            Lmax = int(lens.max()) if len(lens) else 1
+            yield s, names, ReadBatch(codes[:, :max(Lmax, 1)], lens), quals
+            s += len(names)
+    else:
+        names, reads, quals = _load_reads(path)
+        reads, quals = _apply_trim(reads, quals, trim_qual)
+        for s, bn, br, bq in _iter_batches(names, reads, quals, batch):
+            yield s, bn, br, bq
 
 
 def cmd_index(argv):
@@ -39,10 +221,8 @@ def cmd_index(argv):
     p.add_argument("-p", "--prefix", default=None)
     p.add_argument("-s", "--sa-intv", type=int, default=32)
     a = p.parse_args(argv)
-    from hsa_tpu.pipeline import build_index
-    from .refpack import ensure_refpack
-    # The numpy fallback builder is O(n log^2 n): at genome scale only the
-    # native library (built with make/g++ at first use) is usable.
+    # the index build is native only: the library is compiled with g++ at
+    # first use, and its time is reported apart from the build
     t0 = time.perf_counter()
     ensure_refpack()
     print(f"[hsa-tpu-torch] native refpack library ready in "
@@ -98,9 +278,6 @@ def cmd_align(argv):
                    help="torch device to search on (default cuda)")
     _add_search_opts(p)
     a = p.parse_args(argv)
-    from hsa_tpu.io.sam import sam_header
-    from hsa_tpu.metrics import RunMetrics
-    from .pipeline import Aligner
     met = RunMetrics()
     opt = _opt_from_args(a)
     met.config = dict(cmd="align", reads=a.reads, batch=a.batch,
@@ -186,9 +363,6 @@ def cmd_align_pe(argv):
                    help="torch device to search and rescue on (default cuda)")
     _add_search_opts(p)
     a = p.parse_args(argv)
-    from hsa_tpu.io.sam import sam_header
-    from hsa_tpu.metrics import RunMetrics
-    from .pipeline import Aligner
     met = RunMetrics()
     opt = _opt_from_args(a)
     met.config = dict(cmd="align-pe", reads1=a.reads1, reads2=a.reads2,

@@ -33,8 +33,10 @@
 // thread writes its columns' del.  Three barriers per row; int32 throughout.
 //
 // What bounds it: the serial row loop, L rows of about 25 integer
-// operations per column plus the scan and three barriers, all in shared
-// memory; device memory is read once per job ((L + G) int32) and written
+// instructions per column as written here (the recurrence itself needs 11:
+// compare and select for sub, two min and an add for m', two adds and a min
+// for ins', and add, min, add for del') plus the scan and three barriers,
+// all in shared memory; device memory is read once per job ((L + G) int32) and written
 // once (two int32).  At the rescue shapes (L = 150, G = 576) a thread owns
 // 5 columns, so a row is short and the barriers and the scan weigh as much
 // as the arithmetic.  Packing several jobs into one block, or anti-diagonal

@@ -17,19 +17,41 @@
 //                       slot is invalid
 // Payloads are raw 32-bit patterns, moved unchanged.
 //
-// Design: one thread per column, so a warp reads 32 neighbouring columns of
-// one row and every load coalesces.  A first pass counts the valid keys and
-// writes the drop row; then min(K, nvalid) rounds each scan the column for
-// the smallest valid key strictly above the previous pick.  Keys are unique
-// within a column, so no slot needs marking and nothing is kept per column
-// beyond the previous pick.
+// What bounds it: bytes.  The function must read the C*B keys once, write
+// (4K+1)*B words and fetch up to 3K payload words per column.  A fetched
+// word is 4 compulsory bytes, but it costs a 32-byte sector because
+// neighbouring columns pick different rows; at the beam's frontier shape
+// ([576, 32768], K = 64) that is about 310 MB with sectors and under half of
+// it without, either way under 0.1 ms of the card's memory rate, and the
+// selection below is some tens of integer operations per valid key on top.
 //
-// What bounds it: the column scans, (1 + min(K, nvalid)) * C loads per column.
-// At the beam's frontier shape ([576, 32768] int32, K = 64) the key matrix
-// is 75 MB, above the 50 MB L2, so a scan round streams it from device
-// memory; the early stop at nvalid is what keeps sparse columns cheap.
-// Staging a tile of columns in shared memory, or splitting a column's rows
-// across a warp, would cut that traffic and is left to later work.
+// Design: the keys are read ONCE.
+//   1. A block of 512 threads owns a tile of TX = 16 neighbouring columns
+//      (8 when C is too tall for the tile to fit in shared memory).  Thread
+//      (x, y) reads rows y, y + R, ... of column x (R = 512 / TX), so a
+//      warp's load is whole 32-byte sectors of two rows, four loads in
+//      flight per thread.  The window test is applied on the way in, and
+//      each valid key is appended with its row to the column's list in
+//      shared memory (a shared-memory atomic counter per column; the order
+//      does not matter because keys are unique).  At the frontier shape a
+//      tile takes 82 KB, so two blocks share an SM and one block's loads
+//      overlap the other's ranking.
+//   2. One warp per column.  Where the column has more than K valid keys,
+//      the warp finds the K-th smallest by bisection on the key's value
+//      (each round counts the keys at or below the midpoint, n / 32 per
+//      lane and one warp reduction; at most 31 rounds, about 20 for the
+//      beam's scores) and moves the K keys at or below it to the front of
+//      the list with a ballot.  Then the min(n, K) keys left are ranked by
+//      counting: the rank of a key is the number of smaller keys, exact
+//      because keys are unique.  A key of rank s goes to slot s of an
+//      output tile staged in shared memory, with its row.  Slots n..K-1
+//      get SENT and no row; the drop row gets accum + max(n - K, 0).
+//   3. The [K+1, TX] key tile is written out by rows (coalesced), and the
+//      winners' payloads are fetched from global memory by the staged rows,
+//      min(n, K) loads per payload and column, and written out by rows too.
+// Column lists are [TX][cap] with cap = 1 (mod 32) and the staged tiles have
+// a row stride of TX + 1, so neither the appends, the ranking reads nor the
+// staged writes pile up on one shared-memory bank.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,7 +61,11 @@ namespace {
 constexpr int32_t kSent = 0x7FFF0000;
 constexpr int kKeyShift = 14;
 constexpr int kMaxPay = 3;
-constexpr int kThreads = 64;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kLoads = 4;                 // key loads in flight per thread
+constexpr size_t kMaxSmem = 232448;       // 227 KB: the most a block may ask
 
 struct Payloads {
   const int32_t* in[kMaxPay];
@@ -50,49 +76,170 @@ __device__ __forceinline__ bool is_valid(int32_t k, bool has_win, int32_t win) {
   return k < kSent && !(has_win && (k >> kKeyShift) > win);
 }
 
+// Entries per column list: at least C, and 1 modulo 32.
+__host__ __device__ inline int list_cap(int C) { return ((C + 31) / 32) * 32 + 1; }
+
+// Shared memory of one block, in bytes.
+inline size_t smem_bytes(int TX, int C, int K) {
+  return sizeof(int32_t) * ((size_t)2 * TX * list_cap(C)
+                            + (size_t)(2 * K + 1) * (TX + 1) + TX);
+}
+
+template <int TX>
 __global__ void __launch_bounds__(kThreads)
 select_topk_kernel(const int32_t* __restrict__ key, Payloads pay, int n_pay,
                    const int32_t* __restrict__ window,
                    const int32_t* __restrict__ accum,
                    int32_t* __restrict__ okey, int C, int B, int K) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  extern __shared__ int32_t smem[];
+  constexpr int R = kThreads / TX;        // row slices
+  constexpr int TS = TX + 1;              // row stride of the staged tiles
+  const int cap = list_cap(C);
+  int32_t* skey = smem;                   // [TX][cap] valid keys per column
+  int32_t* srow = skey + TX * cap;        // [TX][cap] and their rows
+  int32_t* tkey = srow + TX * cap;        // [K + 1][TS] staged output keys
+  int32_t* trow = tkey + (K + 1) * TS;    // [K][TS] staged winner rows
+  int* cnt = trow + K * TS;               // [TX] valid keys per column
+
+  const int x = threadIdx.x % TX, y = threadIdx.x / TX;
+  const int col0 = blockIdx.x * TX;
+  const int col = col0 + x;
+  const bool live = col < B;
   const size_t ld = (size_t)B;
-  const int32_t* col = key + b;
-  const bool has_win = window != nullptr;
-  const int32_t win = has_win ? window[b] : 0;
 
-  int nvalid = 0;
-  for (int c = 0; c < C; ++c) nvalid += is_valid(col[c * ld], has_win, win);
-  const uint32_t acc = accum != nullptr ? (uint32_t)accum[b] : 0u;
-  okey[K * ld + b] = (int32_t)(acc + (uint32_t)max(nvalid - K, 0));
+  if (threadIdx.x < TX) cnt[threadIdx.x] = 0;
+  __syncthreads();
 
-  const int picks = min(K, nvalid);
-  int32_t prev = -1;
-  for (int s = 0; s < picks; ++s) {
-    int32_t best = 0x7FFFFFFF;
-    int arg = 0;
-    for (int c = 0; c < C; ++c) {
-      const int32_t k = col[c * ld];
-      if (k > prev && k < best && is_valid(k, has_win, win)) {
-        best = k;
-        arg = c;
+  // 1. read the tile's keys once; append the valid ones to their column
+  if (live) {
+    const bool has_win = window != nullptr;
+    const int32_t win = has_win ? window[col] : 0;
+    const int32_t* src = key + col;
+    int32_t* ck = skey + x * cap;
+    int32_t* cr = srow + x * cap;
+    for (int c = y; c < C; c += kLoads * R) {
+      int32_t k[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int cc = c + u * R;
+        k[u] = cc < C ? src[cc * ld] : kSent;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        if (is_valid(k[u], has_win, win)) {
+          const int pos = atomicAdd(&cnt[x], 1);
+          ck[pos] = k[u];
+          cr[pos] = c + u * R;
+        }
       }
     }
-    okey[s * ld + b] = best;
-    for (int p = 0; p < n_pay; ++p) pay.out[p][s * ld + b] = pay.in[p][arg * ld + b];
-    prev = best;
   }
-  for (int s = picks; s < K; ++s) {
-    okey[s * ld + b] = kSent;
-    for (int p = 0; p < n_pay; ++p) pay.out[p][s * ld + b] = 0;
+  __syncthreads();
+
+  // 2. one warp per column: keep the K smallest, rank them, stage them
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int xc = warp; xc < TX && col0 + xc < B; xc += kWarps) {
+    const int n = cnt[xc];
+    const int m = min(n, K);
+    int32_t* ck = skey + xc * cap;
+    int32_t* cr = srow + xc * cap;
+    if (n > K) {
+      // the K-th smallest key, by bisection on the value between the
+      // column's least and greatest key: count(key <= hi) >= K > count(key < lo)
+      int32_t lo = 0x7FFFFFFF, hi = 0;
+      for (int i = lane; i < n; i += 32) {
+        lo = min(lo, ck[i]);
+        hi = max(hi, ck[i]);
+      }
+      lo = __reduce_min_sync(kFull, lo);
+      hi = __reduce_max_sync(kFull, hi);
+      while (lo < hi) {
+        const int32_t mid = lo + (hi - lo) / 2;
+        int c = 0;
+        for (int i = lane; i < n; i += 32) c += ck[i] <= mid;
+        c = __reduce_add_sync(kFull, c);
+        if (c >= K) hi = mid; else lo = mid + 1;
+      }
+      // move the K keys <= lo to the front of the list, in place: a pass
+      // reads 32 entries, then writes at or before the first of them
+      int kept = 0;
+      for (int base = 0; base < n; base += 32) {
+        const int i = base + lane;
+        const int32_t k = i < n ? ck[i] : 0x7FFFFFFF;
+        const int32_t r = i < n ? cr[i] : 0;
+        const bool keep = k <= lo;
+        const unsigned mask = __ballot_sync(kFull, keep);
+        __syncwarp();               // every lane has read before any writes
+        if (keep) {
+          const int p = kept + __popc(mask & ((1u << lane) - 1u));
+          ck[p] = k;
+          cr[p] = r;
+        }
+        kept += __popc(mask);
+        __syncwarp();
+      }
+    }
+    // the rank of a key is the number of smaller keys among the m kept
+    for (int i = lane; i < m; i += 32) {
+      const int32_t own = ck[i];
+      int rank = 0;
+#pragma unroll 4
+      for (int j = 0; j < m; ++j) rank += ck[j] < own;
+      tkey[rank * TS + xc] = own;
+      trow[rank * TS + xc] = cr[i];
+    }
+    for (int s = n + lane; s < K; s += 32) {
+      tkey[s * TS + xc] = kSent;
+      trow[s * TS + xc] = -1;
+    }
+    if (lane == 0) {
+      const uint32_t acc = accum != nullptr ? (uint32_t)accum[col0 + xc] : 0u;
+      tkey[K * TS + xc] = (int32_t)(acc + (uint32_t)max(n - K, 0));
+    }
   }
+  __syncthreads();
+
+  // 3. write the staged tile by rows; fetch the winners' payloads
+  if (live) {
+    for (int s = y; s <= K; s += R) okey[s * ld + col] = tkey[s * TS + x];
+    for (int s = y; s < K; s += R) {
+      const int r = trow[s * TS + x];
+      int32_t v[kMaxPay];
+#pragma unroll
+      for (int p = 0; p < kMaxPay; ++p)
+        v[p] = (p < n_pay && r >= 0) ? pay.in[p][r * ld + col] : 0;
+#pragma unroll
+      for (int p = 0; p < kMaxPay; ++p)
+        if (p < n_pay) pay.out[p][s * ld + col] = v[p];
+    }
+  }
+}
+
+template <int TX>
+int launch(const int32_t* key, const Payloads& pay, int n_pay,
+           const int32_t* window, const int32_t* accum, int32_t* okey, int C,
+           int B, int K, cudaStream_t stream) {
+  const size_t smem = smem_bytes(TX, C, K);
+  // raised once; a second thread that races here only repeats the call
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        select_topk_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    raised = true;
+  }
+  select_topk_kernel<TX><<<(B + TX - 1) / TX, kThreads, smem, stream>>>(
+      key, pay, n_pay, window, accum, okey, C, B, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `window` and `accum` may be null; unused payload pointers are ignored.
+// Launches on `stream` and returns the CUDA error of the launch (0 on
+// success).  `window` and `accum` may be null; unused payload pointers are
+// ignored.  Returns cudaErrorInvalidValue when even a tile of 8 columns of
+// C keys does not fit in a block's shared memory (C of a few thousand).
 extern "C" int hsa_select_topk(const void* key, int n_pay,
                                const void* in0, const void* in1, const void* in2,
                                void* out0, void* out1, void* out2,
@@ -107,9 +254,14 @@ extern "C" int hsa_select_topk(const void* key, int n_pay,
   pay.out[0] = (int32_t*)out0;
   pay.out[1] = (int32_t*)out1;
   pay.out[2] = (int32_t*)out2;
-  const int blocks = (B + kThreads - 1) / kThreads;
-  select_topk_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)key, pay, n_pay, (const int32_t*)window,
-      (const int32_t*)accum, (int32_t*)okey, C, B, K);
-  return (int)cudaGetLastError();
+  const int32_t* k = (const int32_t*)key;
+  const int32_t* w = (const int32_t*)window;
+  const int32_t* a = (const int32_t*)accum;
+  int32_t* o = (int32_t*)okey;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (smem_bytes(16, C, K) <= kMaxSmem)
+    return launch<16>(k, pay, n_pay, w, a, o, C, B, K, st);
+  if (smem_bytes(8, C, K) <= kMaxSmem)
+    return launch<8>(k, pay, n_pay, w, a, o, C, B, K, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,10 +2,16 @@
 
 Replaces the Pallas kernel ``hsa_tpu/kernels/select.py:_build_select``
 (body ``kern``, :59-89) behind ``select_topk`` (:124-203).  The kernel is
-``csrc/select_topk.cu``: one thread per column, K rounds of "smallest
-valid key above the previous pick".  It is bound by its column scans,
-``(1 + min(K, nvalid)) * C`` coalesced loads per column, streamed from
-device memory once the key matrix outgrows the L2 (see the source's note).
+``csrc/select_topk.cu``.  The function is bound by bytes: the keys read
+once, the outputs written once, and each picked payload word: 4 compulsory
+bytes, though the memory system moves a 32-byte sector for it, because
+neighbouring columns pick different rows.  So the kernel reads the keys once: a block compacts the valid keys
+of a tile of neighbouring columns into shared memory with coalesced loads,
+one warp per column ranks them by counting smaller keys (exact, because
+keys are unique within a column), and the winners' payloads are fetched by
+their rows and written out by rows (see the source's note).  ``C`` is
+limited by the shared memory of a block: a few thousand rows, beyond which
+the launch is refused and the wrapper raises.
 
 Contract (the JAX function's, on int32 tensors):
 

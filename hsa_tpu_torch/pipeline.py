@@ -3,12 +3,12 @@
 Counterpart of ``hsa_tpu/pipeline.py``'s beam route: the host streams read
 batches, the device runs the both-strand width pass and beam search, the
 host reads the hits back, locates them on the device and resolves records.
-Paired ends search both ends as one batch and resolve through the shared
-paired resolver, whose mate rescue screens on the device
-(:mod:`hsa_tpu_torch.resolve.sampe`).  The index directory format and the
-host layer (``ReadBatch``, ``collect_occurrences``,
-``resolve_from_occ_arrays``, ``resolve_pe_from_occ_arrays``) are
-``hsa_tpu``'s own, imported as they are.
+Paired ends search both ends as one batch and resolve through the paired
+resolver, whose mate rescue screens on the device
+(:mod:`hsa_tpu_torch.resolve.sampe`).  The index directory format is
+``hsa_tpu``'s; the host layer (``ReadBatch``, ``build_index``, the
+resolvers) is the port's own copy of it, and nothing of ``hsa_tpu`` is
+imported.
 
 Only ``engine="beam"`` with a single beam width is ported.  The pigeonhole
 engine (``"auto"``/``"pigeon"``) and the beam ladder raise
@@ -25,18 +25,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from hsa_tpu import alphabet
-from hsa_tpu.config import AlnOpt, PEOpt, SamseOpt
-from hsa_tpu.index.layout import DeviceIndex
-from hsa_tpu.io.fastx import RefMeta
-from hsa_tpu.pipeline import ReadBatch
-from hsa_tpu.refpack import unpack_2bit
-from hsa_tpu.resolve.samse import collect_occurrences, resolve_from_occ_arrays
-from hsa_tpu.resolve.sampe import resolve_pe_from_occ_arrays
-
-from .index.layout import to_device
-from .refpack import ensure_refpack
-from .resolve.sampe import bind_rescue, rescue_batch
+from . import alphabet, refpack
+from .config import AlnOpt, PEOpt, SamseOpt
+from .index.layout import DeviceIndex, build_device_index, to_device
+from .io.fastx import RefMeta, load_reference
+from .resolve.sampe import _rescue_batch, resolve_pe_from_occ_arrays
+from .resolve.samse import collect_occurrences, resolve_from_occ_arrays
 from .search import fm
 from .search.adaptive import finalize_any
 from .search.beam import (LADDER_TODO, pack_read_batch, result_to_hits,
@@ -48,6 +42,75 @@ ENGINE_TODO = ("engine={!r}: the pigeonhole engine and auto routing are not "
 
 # batches in flight on worker threads ahead of the one being resolved
 STREAM_DEPTH = 2
+
+
+class ReadBatch:
+    """Matrix-backed read batch: codes uint8 [B, Lmax] + lens int32 [B].
+
+    Replaces list-of-arrays batches on the hot path so packing and
+    resolution work matrix-to-matrix (no 65K-iteration Python copy
+    loops).  Indexing returns the j-th read's code view, so every
+    list-based consumer keeps working.
+    """
+
+    __slots__ = ("mat", "lens")
+
+    def __init__(self, mat, lens):
+        self.mat = np.asarray(mat, np.uint8)
+        self.lens = np.asarray(lens, np.int32)
+
+    @classmethod
+    def from_reads(cls, reads):
+        if isinstance(reads, ReadBatch):
+            return reads
+        B = len(reads)
+        Lmax = max((len(r) for r in reads), default=1)
+        mat = np.full((B, max(Lmax, 1)), 5, np.uint8)
+        lens = np.zeros(B, np.int32)
+        for j, r in enumerate(reads):
+            mat[j, :len(r)] = np.asarray(r, np.uint8)
+            lens[j] = len(r)
+        return cls(mat, lens)
+
+    def __len__(self):
+        return self.mat.shape[0]
+
+    def __getitem__(self, j):
+        return self.mat[j, :self.lens[j]].astype(np.int8)
+
+    def __iter__(self):
+        return (self[j] for j in range(len(self)))
+
+    def subset(self, idx):
+        idx = np.asarray(idx, np.int64)
+        return ReadBatch(self.mat[idx], self.lens[idx])
+
+    def padded(self, Lmax=None):
+        """(mat, lens) with columns >= lens set to PAD(5)."""
+        m = self.mat
+        if Lmax is not None and m.shape[1] < Lmax:
+            m = np.pad(m, ((0, 0), (0, Lmax - m.shape[1])),
+                       constant_values=5)
+        t = np.arange(m.shape[1])[None, :]
+        return np.where(t < self.lens[:, None], m, 5).astype(np.uint8), \
+            self.lens
+
+
+def build_index(fasta_path: str, prefix: str, sa_intv: int = 32) -> str:
+    """``index``: FASTA -> artifact dir (the directory ``hsa-tpu index``
+    writes, byte for byte).  Returns the dir path."""
+    text, meta = load_reference(fasta_path)
+    di = build_device_index(text, sa_intv=sa_intv, with_reverse=True)
+    outdir = prefix + ".hsa"
+    os.makedirs(outdir, exist_ok=True)
+    di.save(os.path.join(outdir, "index.npz"))
+    with open(os.path.join(outdir, "meta.json"), "w") as fh:
+        json.dump(dict(ref=meta.to_dict(), sa_intv=sa_intv, version=1), fh)
+    packed = refpack.pack_2bit(text.astype(np.uint8))
+    with open(os.path.join(outdir, "text.pac"), "wb") as fh:
+        fh.write(np.int64(len(text)).tobytes())
+        fh.write(packed.tobytes())
+    return outdir
 
 
 def _check_route(engine, ladder):
@@ -66,7 +129,7 @@ class Aligner:
     def __init__(self, index_dir: str, opt: AlnOpt | None = None,
                  ladder=None, engine: str = "beam", device="cuda"):
         _check_route(engine, ladder)
-        ensure_refpack()
+        refpack.ensure_refpack()
         if not os.path.isdir(index_dir) and os.path.isdir(index_dir + ".hsa"):
             index_dir = index_dir + ".hsa"
         self.index_dir = index_dir
@@ -80,7 +143,7 @@ class Aligner:
         with open(os.path.join(index_dir, "text.pac"), "rb") as fh:
             n = np.frombuffer(fh.read(8), np.int64)[0]
             packed = np.frombuffer(fh.read(), np.uint8)
-        self.text = unpack_2bit(packed, int(n)).astype(np.int8)
+        self.text = refpack.unpack_2bit(packed, int(n)).astype(np.int8)
         self.dev = to_device(self.di, device)
         self.device = self.dev.device
 
@@ -92,7 +155,7 @@ class Aligner:
         optional RefMeta; a single-sequence meta is synthesized when
         omitted)."""
         _check_route(engine, ladder)
-        ensure_refpack()
+        refpack.ensure_refpack()
         self = cls.__new__(cls)
         self.index_dir = None
         self.opt = opt or AlnOpt()
@@ -250,20 +313,20 @@ class Aligner:
     def _resolve_pe(self, reads1, reads2, names, quals1, quals2, occ, trunc,
                     c2x, *, read_offset: int = 0, peopt: PEOpt | None = None,
                     emit: str = "records"):
-        """The shared ``resolve_pe_from_occ_arrays`` with this aligner's
-        mate rescue (:meth:`_rescue`) in place of the reference's."""
+        """``resolve_pe_from_occ_arrays`` with the mate rescue on this
+        aligner's device (:meth:`_rescue`)."""
         names = names or [f"pair{read_offset + i}" for i in range(len(reads1))]
         self.last_rescue_jobs = 0
-        resolve = bind_rescue(resolve_pe_from_occ_arrays, self._rescue)
-        return resolve(self.text, self.meta, reads1, reads2, names, quals1,
-                       quals2, occ, self.opt, peopt, read_offset=read_offset,
-                       trunc=trunc, c2x=c2x, emit=emit)
+        return resolve_pe_from_occ_arrays(
+            self.text, self.meta, reads1, reads2, names, quals1, quals2, occ,
+            self.opt, peopt, read_offset=read_offset, trunc=trunc, c2x=c2x,
+            emit=emit, rescue=self._rescue)
 
     def _rescue(self, text, meta, jobs, rlim, opt):
-        """``_rescue_batch`` of the shared resolver, run on this device;
-        notes the batch's job count in ``last_rescue_jobs``."""
+        """The resolver's ``_rescue_batch`` on this device; notes the
+        batch's job count in ``last_rescue_jobs``."""
         self.last_rescue_jobs = len(jobs)
-        return rescue_batch(text, meta, jobs, rlim, opt, self.device)
+        return _rescue_batch(text, meta, jobs, rlim, opt, self.device)
 
     def align_pe_stream(self, batches, *, beam_width=None, max_hits=32,
                         peopt: PEOpt | None = None, emit: str = "records"):

@@ -1,2 +1,3 @@
-"""Paired-end resolution with the port's mate rescue (the counterpart of
-:mod:`hsa_tpu.resolve`)."""
+"""Hit resolution and output layer (counterpart of :mod:`hsa_tpu.resolve`):
+per-read hit lists or occurrence arrays -> SAM records, single and paired
+ends, with the paired mate rescue screened on a torch device."""

@@ -32,12 +32,11 @@ events are counted per read (``n_live_dropped`` / ``n_hits_dropped``).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
-
-from hsa_tpu.oracle.bnb import Hit
 
 from ..kernels.select import KEY_SH, SENT, select_topk
 from . import fm
@@ -51,6 +50,23 @@ M_, I_, D_ = 0, 1, 2
 # meta bit layout
 _I_BITS = 9
 _NMM_SH, _GAPO_SH, _GAPE_SH, _SEED_SH, _ST_SH = 9, 13, 16, 20, 24
+
+@dataclass(frozen=True)
+class Hit:
+    """One recorded hit: an SA interval plus the path budgets that reached
+    it (the dataclass of ``hsa_tpu/oracle/bnb.py``)."""
+
+    score: int
+    nmm: int
+    ngapo: int
+    ngape: int
+    k: int
+    l: int
+
+    @property
+    def width(self) -> int:
+        return self.l - self.k + 1
+
 
 LADDER_TODO = ("the adaptive beam ladder (AdaptiveBeam) is not ported yet: "
                "ROADMAP.md Queue A item 2")

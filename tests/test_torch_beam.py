@@ -5,6 +5,8 @@ the port's ``align_batch``; finalized hits, every finalized array on valid
 slots, and both overflow counters must be bit-equal.
 """
 
+from dataclasses import astuple
+
 import numpy as np
 import pytest
 import torch
@@ -57,7 +59,9 @@ def assert_same(reads, opt, W, H, text_idx=(DJ, DT)):
     dj, dt = text_idx
     hj, rj = jbeam.align_batch(dj, reads, opt, beam_width=W, max_hits=H)
     ht, rt = tbeam.align_batch(dt, reads, opt, beam_width=W, max_hits=H)
-    assert ht == hj
+    # the port's Hit is its own dataclass: compare field by field
+    assert [[astuple(h) for h in hits] for hits in ht] == \
+        [[astuple(h) for h in hits] for hits in hj]
     valid = np.asarray(rj.hit_valid)
     for f in rj._fields:
         a, b = np.asarray(getattr(rj, f)), np.asarray(getattr(rt, f))

@@ -1,5 +1,5 @@
 """Port paired-end alignment (beam route, CPU) vs hsa_tpu's: byte-equal SAM,
-with a mate rescue exercised; and the native-library repair."""
+with a mate rescue exercised; and the port's native-library loader."""
 
 import os
 import subprocess
@@ -8,14 +8,15 @@ import sys
 import numpy as np
 import pytest
 
-from hsa_tpu import alphabet, refpack
+from hsa_tpu import alphabet
 from hsa_tpu.config import AlnOpt
 from hsa_tpu.pipeline import Aligner as JAligner
 from hsa_tpu.pipeline import build_index
 from hsa_tpu.resolve import sampe
 from hsa_tpu_torch import cli as tcli
+from hsa_tpu_torch import refpack as trefpack
 from hsa_tpu_torch.pipeline import Aligner as TAligner
-from hsa_tpu_torch.resolve.sampe import rescue_batch
+from hsa_tpu_torch.resolve.sampe import _rescue_batch as rescue_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 60
@@ -145,7 +146,8 @@ def test_pe_path_never_imports_jax(pe_corpus):
         f"assert cli.main(['align-pe', {prefix!r}, {str(tmp / 'r1.fq')!r}, "
         f"{str(tmp / 'r2.fq')!r}, '--device', 'cpu', '-f', "
         f"{str(tmp / 'nojax.sam')!r}]) == 0\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'hsa_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -155,13 +157,27 @@ def test_pe_path_never_imports_jax(pe_corpus):
 
 
 @pytest.fixture
-def racing_worker_state(monkeypatch):
-    """``hsa_tpu.refpack`` as a test worker is left when it opened the
-    library while another worker's ``make`` was still writing it: no
-    library, and a failed load remembered for the rest of the process."""
-    monkeypatch.setattr(refpack, "_lib", None)
-    monkeypatch.setattr(refpack, "_build_failed", True)
-    assert not refpack.available()
+def racing_worker_state(monkeypatch, tmp_path):
+    """The port's loader as a process finds it when another writer left the
+    library cut short: nothing loaded yet, and a file in the build
+    directory that ``ctypes`` refuses ("file too short") although its
+    digest is the right one.  The build directory is a scratch one, so the
+    real build is not disturbed."""
+    build = tmp_path / "_build"
+    build.mkdir()
+    so = build / "librefpack.so"
+    so.write_bytes(b"\x7fELF")
+    (build / "librefpack.so.sha256").write_text(trefpack._digest() + "\n")
+    monkeypatch.setattr(trefpack, "_lib", None)
+    monkeypatch.setattr(trefpack, "BUILD_DIR", str(build))
+    monkeypatch.setattr(trefpack, "_SO", str(so))
+    return so
+
+
+def _loaded_from(so):
+    """The port's library is loaded, from ``so``, which is now whole."""
+    return (trefpack._lib is not None and trefpack._lib._name == str(so)
+            and so.stat().st_size > 10_000)
 
 
 def test_cli_index_recovers_a_failed_native_load(racing_worker_state,
@@ -170,7 +186,7 @@ def test_cli_index_recovers_a_failed_native_load(racing_worker_state,
     (tmp_path / "g.fa").write_text(
         ">g\n" + alphabet.decode(rs.randint(0, 4, 3000).astype(np.int8)) + "\n")
     assert tcli.main(["index", str(tmp_path / "g.fa")]) == 0
-    assert refpack.available()
+    assert _loaded_from(racing_worker_state)
     assert (tmp_path / "g.fa.hsa" / "index.npz").exists()
 
 
@@ -185,7 +201,28 @@ def test_rescue_recovers_a_failed_native_load(racing_worker_state):
     jobs = [(0, 2, Occurrence(400, 0, 0, 0, 0, 0), mate, 60)]
     got = list(rescue_batch(text, meta, jobs, 400, AlnOpt(), "cpu"))
     assert got[0][2] is not None and got[0][2].pos == 600
-    assert got == list(sampe._rescue_batch(text, meta, jobs, 400, AlnOpt()))
+    assert _loaded_from(racing_worker_state)
+    want = list(sampe._rescue_batch(text, meta, jobs, 400, AlnOpt()))
+    assert [(j, e, vars(o)) for j, e, o in got] == \
+        [(j, e, vars(o)) for j, e, o in want]
+
+
+def test_stale_native_library_is_rebuilt(racing_worker_state):
+    """A library that loads but was built from other sources or flags (its
+    digest differs) is rebuilt, not loaded."""
+    so = racing_worker_state
+    digest = so.with_name("librefpack.so.sha256")
+    trefpack.ensure_refpack()                  # now whole and loadable
+    trefpack._lib, before = None, so.stat().st_ino
+    digest.write_text("0" * 64 + "\n")
+    x = np.arange(9, dtype=np.uint8) & 3
+    assert (trefpack.unpack_2bit(trefpack.pack_2bit(x), 9) == x).all()
+    assert _loaded_from(so) and so.stat().st_ino != before
+    assert digest.read_text().strip() == trefpack._digest()
+    # a second process-like start finds it current and builds nothing
+    trefpack._lib, now = None, so.stat().st_ino
+    trefpack.ensure_refpack()
+    assert so.stat().st_ino == now
 
 
 def test_processes_started_together_all_load_the_library(tmp_path):
@@ -193,10 +230,12 @@ def test_processes_started_together_all_load_the_library(tmp_path):
     the lock, and every one loads it."""
     import shutil
     skip = shutil.ignore_patterns("*.so", "__pycache__", "_build")
-    for pkg in ("hsa_tpu", "hsa_tpu_torch"):
-        shutil.copytree(os.path.join(REPO, pkg), tmp_path / pkg, ignore=skip)
-    code = ("from hsa_tpu_torch.refpack import ensure_refpack\n"
-            "ensure_refpack()\n"
+    shutil.copytree(os.path.join(REPO, "hsa_tpu_torch"),
+                    tmp_path / "hsa_tpu_torch", ignore=skip)
+    code = ("from hsa_tpu_torch import refpack\n"
+            "import numpy as np\n"
+            "x = np.arange(9, dtype=np.uint8) & 3\n"
+            "assert (refpack.unpack_2bit(refpack.pack_2bit(x), 9) == x).all()\n"
             "print('ok')\n")
     procs = [subprocess.Popen([sys.executable, "-c", code], cwd=tmp_path,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -204,7 +243,7 @@ def test_processes_started_together_all_load_the_library(tmp_path):
     outs = [p.communicate(timeout=300) for p in procs]
     assert [p.returncode for p in procs] == [0] * 4, outs
     assert all(o.strip() == "ok" for o, _ in outs)
-    assert (tmp_path / "hsa_tpu" / "refpack" / "librefpack.so").exists()
+    assert (tmp_path / "hsa_tpu_torch" / "_build" / "librefpack.so").exists()
     # no scratch build directory is left behind
     assert not [p for p in (tmp_path / "hsa_tpu_torch" / "_build").iterdir()
                 if p.is_dir()]

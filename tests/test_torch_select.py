@@ -154,3 +154,182 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
+
+
+# -- edge cases of the selection, plain version against the JAX package ------
+
+def edge_case(name):
+    """(key, pays, win, acc, K) for one edge of the compaction and the rank:
+    every key valid, no key valid in some columns, exactly K and K + 1 valid
+    keys, a width that is no multiple of 32, and a drop counter that wraps
+    past 2^32."""
+    C, B, K = 48, 64, 8
+    if name == "ragged_width":
+        B = 45
+    key, pays, win, acc = make_case(C, B, seed=len(name), frac_valid=0.6,
+                                    with_accum=True, n_pay=3)
+    rs = np.random.RandomState(7)
+    row = np.arange(C, dtype=np.uint32)[:, None]
+    valid_key = (rs.randint(0, 50, (C, B)).astype(np.uint32) << KEY_SH) | row
+    if name == "all_valid":
+        key = valid_key
+    elif name == "none_valid_in_some_columns":
+        key[:, ::3] = (SENT | row).astype(np.uint32)
+    elif name in ("n_equals_K", "n_equals_K_plus_1"):
+        n = K if name == "n_equals_K" else K + 1
+        for b in range(B):
+            keep = rs.permutation(C)[:n]
+            col = (SENT | row[:, 0]).astype(np.uint32)
+            col[keep] = valid_key[keep, b]
+            key[:, b] = col
+    elif name == "accum_wraps":
+        acc = np.full((1, B), 2 ** 32 - 3, np.uint32)
+        acc[0, ::2] = 2 ** 32 - 1
+    return key, pays, win, acc, K
+
+
+EDGES = ["all_valid", "none_valid_in_some_columns", "n_equals_K",
+         "n_equals_K_plus_1", "ragged_width", "accum_wraps"]
+
+
+@pytest.mark.parametrize("name", EDGES)
+def test_edge_cases_match_reference_and_pallas(name):
+    key, pays, win, acc, K = edge_case(name)
+    jk, jp = jnp.asarray(key), tuple(jnp.asarray(p) for p in pays)
+    okeyd, pouts, nd = run_port(key, pays, K, win, acc)
+    # the sort reference: every slot
+    rk, rp, rd = select_topk_reference(jk, jp, K, None)
+    np.testing.assert_array_equal(okeyd[:K], _u32(rk))
+    for a, b in zip(rp, pouts):
+        np.testing.assert_array_equal(_u32(a), b)
+    np.testing.assert_array_equal(
+        okeyd[K], (_u32(rd).reshape(-1) + acc[0].astype(np.int64)) & 0xFFFFFFFF)
+    # the Pallas kernel, interpreted: valid slots and the drop row
+    lanes = 32 if key.shape[1] % 32 == 0 else key.shape[1]
+    kkd, kp, kd = jselect(jk, jp, K, None, jnp.asarray(acc), interpret=True,
+                          lanes=lanes)
+    kk = _u32(kkd)
+    valid = okeyd[:K] < SENT
+    np.testing.assert_array_equal(kk[:K] < SENT, valid)
+    np.testing.assert_array_equal(np.where(valid, kk[:K], 0),
+                                  np.where(valid, okeyd[:K], 0))
+    for a, b in zip(kp, pouts):
+        np.testing.assert_array_equal(np.where(valid, _u32(a), 0),
+                                      np.where(valid, b, 0))
+    np.testing.assert_array_equal(kk[K], okeyd[K])
+    nvalid = (key < SENT).sum(axis=0)
+    np.testing.assert_array_equal(
+        nd.reshape(-1),
+        (acc[0].astype(np.int64) + np.maximum(nvalid - K, 0)) & 0xFFFFFFFF)
+
+
+# -- the CUDA kernel's algorithm, emulated in Python ---------------------------
+
+def emulate_kernel(key, pays, K, win, acc, TX, seed):
+    """``csrc/select_topk.cu`` step by step on numpy arrays: per tile of
+    ``TX`` columns the valid keys are appended to per-column lists in an
+    arbitrary order (the order of the kernel's shared-memory atomics, here
+    shuffled from ``seed``); per column a "warp" bisects on the key's
+    value to the K-th smallest, moves the keys at or below it to the front
+    of the list in place, 32 entries a pass, and ranks what is left by
+    counting smaller keys; the K smallest are staged in a tile of row
+    stride TX + 1 with their rows, and the tile is written out with the
+    payloads fetched by row.  Invalid slots: SENT and payload 0."""
+    C, B = key.shape
+    rs = np.random.RandomState(seed)
+    cap = (C + 31) // 32 * 32 + 1
+    TS = TX + 1
+    okey = np.full((K + 1, B), 0xDEAD, np.int64)
+    pouts = [np.full((K, B), 0xDEAD, np.int64) for _ in pays]
+    for col0 in range(0, B, TX):
+        skey = np.zeros((TX, cap), np.int64)
+        srow = np.zeros((TX, cap), np.int64)
+        cnt = np.zeros(TX, np.int64)
+        tkey = np.full((K + 1) * TS, -7, np.int64)
+        trow = np.full(K * TS, -7, np.int64)
+        # 1. compaction, in a shuffled thread order
+        cells = [(c, x) for c in range(C) for x in range(TX) if col0 + x < B]
+        for i in rs.permutation(len(cells)):
+            c, x = cells[i]
+            k = int(key[c, col0 + x])
+            if k < SENT and not (win is not None
+                                 and (k >> KEY_SH) > int(win[col0 + x])):
+                skey[x, cnt[x]], srow[x, cnt[x]] = k, c
+                cnt[x] += 1
+        # 2. per column: bisect to the K-th smallest, compact, rank
+        for xc in range(TX):
+            if col0 + xc >= B:
+                break
+            n = int(cnt[xc])
+            m = min(n, K)
+            ck, cr = skey[xc], srow[xc]
+            if n > K:
+                lo, hi = int(ck[:n].min()), int(ck[:n].max())
+                rounds = 0
+                while lo < hi:
+                    mid = lo + (hi - lo) // 2
+                    if int((ck[:n] <= mid).sum()) >= K:
+                        hi = mid
+                    else:
+                        lo = mid + 1
+                    rounds += 1
+                assert rounds <= 31
+                kept = 0
+                for base in range(0, n, 32):     # a warp's pass, in place
+                    k32 = ck[base:min(base + 32, n)].copy()
+                    r32 = cr[base:min(base + 32, n)].copy()
+                    keep = k32 <= lo
+                    assert kept <= base
+                    ck[kept:kept + keep.sum()] = k32[keep]
+                    cr[kept:kept + keep.sum()] = r32[keep]
+                    kept += int(keep.sum())
+                assert kept == K
+            for i in range(m):
+                rank = int((ck[:m] < ck[i]).sum())
+                tkey[rank * TS + xc] = ck[i]
+                trow[rank * TS + xc] = cr[i]
+            for s in range(n, K):
+                tkey[s * TS + xc], trow[s * TS + xc] = SENT, -1
+            a = int(acc.reshape(-1)[col0 + xc]) if acc is not None else 0
+            tkey[K * TS + xc] = (a + max(n - K, 0)) & 0xFFFFFFFF
+        # 3. write out by rows
+        for x in range(TX):
+            col = col0 + x
+            if col >= B:
+                continue
+            for s in range(K + 1):
+                okey[s, col] = tkey[s * TS + x]
+            for s in range(K):
+                r = trow[s * TS + x]
+                for p, po in zip(pays, pouts):
+                    po[s, col] = int(p[r, col]) if r >= 0 else 0
+    return okey, pouts
+
+
+@pytest.mark.parametrize("TX", [16, 8])
+@pytest.mark.parametrize("name", ["windowed", "all_valid", "ragged_width",
+                                  "none_valid_in_some_columns",
+                                  "n_equals_K_plus_1"])
+def test_kernel_algorithm_emulated(name, TX):
+    """The kernel's compaction + rank gives the plain version's answer on
+    valid slots and the drop row, and SENT / 0 elsewhere.  ``all_valid``
+    at C = 300 compacts 300 keys to K = 40 in ten passes."""
+    if name == "windowed":
+        key, pays, win, acc = make_case(40, 40, seed=11, with_window=True,
+                                        with_accum=True, n_pay=3)
+        K = 8
+    elif name == "all_valid":
+        key, pays, win, acc = make_case(300, 9, seed=12, frac_valid=1.0,
+                                        with_accum=True, n_pay=1)
+        K = 40
+    else:
+        key, pays, win, acc, K = edge_case(name)
+    okeyd, pouts, _ = run_port(key, pays, K, win, acc)
+    ek, ep = emulate_kernel(key.astype(np.int64),
+                            [p.astype(np.int64) for p in pays], K, win, acc,
+                            TX, seed=TX)
+    valid = okeyd[:K] < SENT
+    np.testing.assert_array_equal(np.where(valid, okeyd[:K], SENT), ek[:K])
+    np.testing.assert_array_equal(okeyd[K], ek[K])
+    for a, b in zip(pouts, ep):
+        np.testing.assert_array_equal(np.where(valid, a, 0), b)
