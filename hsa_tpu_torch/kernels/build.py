@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import deque
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -47,6 +48,9 @@ class CudaKernel:
         self._lib = None
         self._lock = threading.Lock()
         self.launches = 0
+        # what count_launch was given for the latest launches; read only by
+        # chip_smoke.py, to time a kernel at the shapes the main path gave it
+        self.launch_shapes = deque(maxlen=256)
         self.build_log = ""
         self.build_s = None              # seconds spent in nvcc, None if cached
 
@@ -56,9 +60,11 @@ class CudaKernel:
                 self._lib = self._build()
             return self._lib
 
-    def count_launch(self):
+    def count_launch(self, shape=None):
         with self._lock:
             self.launches += 1
+            if shape is not None:
+                self.launch_shapes.append(shape)
 
     def _build(self):
         with open(self.source, "rb") as fh:

@@ -3,10 +3,13 @@ plain version.
 
 Replaces the Pallas kernel ``hsa_tpu/kernels/sw.py:_glocal_kernel``
 (:114-192, ``pallas_call`` :215) behind ``glocal_screen_pallas`` (:195).
-The kernel is ``csrc/glocal_screen.cu``: one thread block per rescue job,
-the window's columns spread over the block's threads, one loop over the
-read's bases, and each row's deletion recurrence as a block-wide
-exclusive prefix-min.
+The kernel is ``csrc/glocal_screen.cu``: one warp per rescue job, each lane
+holding a run of consecutive window columns of the DP in registers for the
+whole read, one loop over the read's bases with shuffles only (the left
+neighbour's column, and each row's deletion recurrence as a warp-wide
+exclusive prefix-min), and windows wider than one register tile cut into
+column tiles that hand two values per row to their right neighbour
+(:func:`_plan` chooses the tiles here, where the CPU tests reach it).
 
 Contract (the JAX ``glocal_screen``'s, on int32 tensors):
 
@@ -35,12 +38,17 @@ import torch
 from .build import CudaKernel
 
 BIG = 1 << 28
+MAX_CPL = 24                      # window columns a lane can hold (even, 2..24)
+WARPS_PER_BLOCK = 4
+MIN_TILED_CPL = 14                # the narrowest tiled kernel that is built
+SCRATCH_BYTES = 256 << 20         # cap of the tiles' hand-over rows
+MAX_WARPS = 132 * 16
 
 
 def _declare(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.hsa_glocal_screen.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                                      i, vp]
+    lib.hsa_glocal_screen.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
+                                      i, i, i, i, i, vp]
     lib.hsa_glocal_screen.restype = ctypes.c_int
 
 
@@ -108,6 +116,27 @@ def glocal_screen_plain(reads, lens, windows, wlens, s_mm: int, s_gapo: int,
     return cost, end.to(i32)
 
 
+def _plan(R: int, L: int, G: int, max_cpl: int = MAX_CPL):
+    """How the kernel covers ``R`` jobs of windows ``G`` wide: ``(cpl,
+    n_tiles, n_warps, scratch)``.  A warp holds ``32 * cpl`` columns in
+    registers (``cpl`` even, at most ``max_cpl``); a wider window is cut into
+    ``n_tiles`` column tiles of equal width, and then ``scratch`` int32 hold
+    the two values per row that a tile hands to the next (``2 * L`` for every
+    launched warp), and only ``n_warps`` warps are launched, each looping
+    over jobs: at most ``MAX_WARPS``, and fewer for long reads, so that the
+    scratch stays within ``SCRATCH_BYTES`` (or one block's rows, where even
+    those are more).  Equal tiles over more than ``32 * MAX_CPL`` columns are
+    at least ``MIN_TILED_CPL`` a lane wide."""
+    n_tiles = max(1, -(-G // (32 * max_cpl)))
+    cpl = max(2, 2 * -(-G // (64 * n_tiles)))
+    if n_tiles == 1:
+        return cpl, 1, R, 0
+    fit = SCRATCH_BYTES // (8 * max(L, 1)) // WARPS_PER_BLOCK * WARPS_PER_BLOCK
+    n_warps = min(R, MAX_WARPS, max(WARPS_PER_BLOCK, fit))
+    launched = -(-n_warps // WARPS_PER_BLOCK) * WARPS_PER_BLOCK
+    return cpl, n_tiles, n_warps, launched * 2 * L
+
+
 def _glocal_screen_cuda(reads, lens, windows, wlens, s_mm, s_gapo, s_gape):
     R, L = reads.shape
     G = windows.shape[1]
@@ -116,16 +145,20 @@ def _glocal_screen_cuda(reads, lens, windows, wlens, s_mm, s_gapo, s_gape):
     end = torch.empty(R, dtype=torch.int32, device=reads.device)
     if R == 0:                        # nothing to launch over
         return cost, end
+    cpl, n_tiles, n_warps, n_scratch = _plan(R, L, G)
+    scratch = torch.empty(max(n_scratch, 1), dtype=torch.int32,
+                          device=reads.device) if n_tiles > 1 else None
     with torch.cuda.device(reads.device):
         stream = torch.cuda.current_stream(reads.device).cuda_stream
         err = lib.hsa_glocal_screen(
             reads.data_ptr(), lens.data_ptr(), windows.data_ptr(),
-            wlens.data_ptr(), cost.data_ptr(), end.data_ptr(), R, L, G,
-            s_mm, s_gapo, s_gape, stream)
+            wlens.data_ptr(), cost.data_ptr(), end.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), R, L, G, cpl,
+            n_tiles, n_warps, s_mm, s_gapo, s_gape, stream)
     if err:
         raise RuntimeError(f"glocal_screen kernel launch failed: CUDA error "
                            f"{err} at R={R} L={L} G={G}")
-    KERNEL.count_launch()
+    KERNEL.count_launch((R, L, G))
     return cost, end
 
 

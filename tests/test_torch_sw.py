@@ -19,7 +19,7 @@ from hsa_tpu.kernels.sw import glocal_screen_pallas
 from hsa_tpu.resolve import sampe
 from hsa_tpu.resolve.samse import Occurrence
 from hsa_tpu_torch.kernels import build, sw
-from hsa_tpu_torch.kernels.sw import glocal_screen, glocal_screen_plain
+from hsa_tpu_torch.kernels.sw import BIG, glocal_screen, glocal_screen_plain
 from hsa_tpu_torch.resolve import sampe as tsampe
 from hsa_tpu_torch.resolve.sampe import _rescue_batch as rescue_batch
 
@@ -231,3 +231,219 @@ def test_bind_rescue_names_the_shared_global():
     want = sampe.resolve_pe_from_occ_arrays(*args)
     assert [r.to_sam() for r in got] == [r.to_sam() for r in want]
     assert got[1].pos == 601 and got[1].tags["XT"] == "M"
+
+
+# -- the CUDA kernel's decomposition, emulated lane by lane --------------------
+
+def _shfl_up(x, d):
+    """``__shfl_up_sync``: lanes below ``d`` get their own value back."""
+    out = x.copy()
+    out[d:] = x[:-d]
+    return out
+
+
+def _shfl_down(x, d):
+    out = x.copy()
+    out[:-d] = x[d:]
+    return out
+
+
+def emulate_kernel(reads, lens, wins, wlens, s_mm, s_gapo, s_gape,
+                   max_cpl=sw.MAX_CPL):
+    """``csrc/glocal_screen.cu`` step by step in numpy, one array slot per
+    lane: lane-owned column runs kept less the column's ramp, the left
+    neighbour's shuffle, the idempotent warp prefix-min for the deletion
+    carry, column tiles that hand two values per row through the scratch (32
+    rows at a time, one row per lane), warps looping over jobs, and the
+    final (value, column) reduction.  Every value must fit int32."""
+    R, L = reads.shape
+    G = wins.shape[1]
+    cpl, n_tiles, n_warps, n_scratch = sw._plan(R, L, G, max_cpl)
+    assert cpl % 2 == 0 and 2 <= cpl <= max_cpl and n_tiles * 32 * cpl >= G
+    tile_w = 32 * cpl
+    scratch = np.full(n_scratch, -12345, np.int64)   # never read unwritten
+    cost, end = np.zeros(R, np.int64), np.zeros(R, np.int64)
+    lane = np.arange(32)
+    k = np.arange(cpl)
+    dconst = s_gapo - s_gape
+    lane_ramp = lane * cpl * s_gape
+    for warp in range(n_warps):
+        edge_t = scratch[warp * 2 * L:warp * 2 * L + L]
+        edge_d = scratch[warp * 2 * L + L:(warp + 1) * 2 * L]
+        for r in range(warp, R, n_warps):
+            n_rows = max(0, min(int(lens[r]), L))
+            W = max(0, min(int(wlens[r]), G))
+            bv, bc = np.full(32, BIG, np.int64), np.full(32, G + 1, np.int64)
+            m0, ins0 = 0, BIG
+            for tile in range(n_tiles):
+                tile0 = tile * tile_w
+                if tile > 0 and tile0 >= W:
+                    break
+                more = tile + 1 < n_tiles
+                cols = tile0 + lane[:, None] * cpl + k[None, :]    # 0-based
+                w = np.where(cols < W, wins[r][np.minimum(cols, G - 1)]
+                             if G else 5, 5)
+                win = np.where(w > 3, 5, w)
+                m = np.tile(-k * s_gape, (32, 1)).astype(np.int64)
+                ins = m + BIG
+                t = m.copy()
+                m0, ins0 = 0, BIG
+                for i0 in range(0, n_rows, 32):
+                    nn = min(32, n_rows - i0)
+                    rd = np.full(32, 4, np.int64)
+                    rd[:nn] = reads[r, i0:i0 + nn]
+                    in_t, in_d = np.zeros(32, np.int64), np.zeros(32, np.int64)
+                    if tile > 0:
+                        in_t[:nn] = edge_t[i0:i0 + nn]
+                        in_d[:nn] = edge_d[i0:i0 + nn]
+                        assert (in_t[:nn] != -12345).all()
+                    out_t, out_d = np.zeros(32, np.int64), np.zeros(32, np.int64)
+                    for ii in range(nn):
+                        rb = min(int(rd[ii]), 4) if rd[ii] <= 3 else 4
+                        diag = _shfl_up(t[:, cpl - 1], 1) + cpl * s_gape
+                        seed = BIG + s_gape
+                        if tile > 0:
+                            seed = in_d[ii]
+                            diag[0] = in_t[ii] + s_gape
+                        else:
+                            diag[0] = min(m0, ins0) + s_gape
+                        for c in range(cpl):                    # pass 1
+                            mn = diag + np.where(rb == win[:, c], -s_gape,
+                                                 s_mm - s_gape)
+                            diag = t[:, c].copy()
+                            ins[:, c] = np.minimum(m[:, c] + s_gapo,
+                                                   ins[:, c] + s_gape)
+                            m[:, c] = mn
+                        run = m.min(axis=1)
+                        incl = np.minimum(run + dconst - lane_ramp, seed)
+                        for d in (1, 2, 4, 8, 16):
+                            incl = np.minimum(incl, _shfl_up(incl, d))
+                        carry = _shfl_up(incl, 1)
+                        carry[0] = seed
+                        carry = carry + lane_ramp
+                        if more:      # t of the row before, del' of this
+                            out_t[ii] = t[31, cpl - 1] + (cpl - 1) * s_gape
+                            out_d[ii] = incl[31] + tile_w * s_gape
+                        for c in range(cpl):                    # pass 2
+                            t[:, c] = np.minimum(np.minimum(m[:, c], ins[:, c]),
+                                                 carry)
+                            carry = np.minimum(m[:, c] + dconst, carry)
+                        ins0 = min(m0 + s_gapo, ins0 + s_gape)
+                        m0 = BIG
+                        for a in (m, ins, t, incl, carry):
+                            assert np.abs(a).max() < 2 ** 31
+                    if more:
+                        edge_t[i0:i0 + nn] = out_t[:nn]
+                        edge_d[i0:i0 + nn] = out_d[:nn]
+                for c in range(cpl):
+                    col = cols[:, c] + 1
+                    v = t[:, c] + c * s_gape
+                    better = (col <= W) & (v < bv)
+                    bv, bc = np.where(better, v, bv), np.where(better, col, bc)
+            for d in (16, 8, 4, 2, 1):
+                v2, c2 = _shfl_down(bv, d), _shfl_down(bc, d)
+                better = (v2 < bv) | ((v2 == bv) & (c2 < bc))
+                bv, bc = np.where(better, v2, bv), np.where(better, c2, bc)
+            end0 = min(ins0, m0)
+            cost[r] = min(int(bv[0]), end0)
+            end[r] = 0 if end0 <= bv[0] else bc[0]
+    return cost.astype(np.int32), end.astype(np.int32)
+
+
+def _edge_arrays(name):
+    """The edge shapes that the card's smoke test runs at full size, small."""
+    rs = np.random.RandomState(sum(map(ord, name)))
+    if name == "narrowest window":              # G = L + 8
+        return cases(rs, 18, 40, 48)
+    if name == "several tiles":                 # 4 tiles of 64 at max_cpl 2
+        return cases(rs, 18, 40, 200)
+    if name == "ragged tiles":                  # 3 tiles of 128, the last part
+        return cases(rs, 11, 70, 300)
+    if name == "no multiple of 32":
+        return cases(rs, 18, 33, 77)
+    if name == "one job":
+        return cases(rs, 1, 40, 100)
+    if name == "jobs no multiple of the block":
+        return cases(rs, 7, 35, 90)
+    if name == "all N":
+        reads, lens, wins, wlens = cases(rs, 9, 40, 100)
+        return np.full_like(reads, 4), lens, wins, wlens
+    assert name == "mixed lengths"
+    reads, lens, wins, wlens = cases(rs, 27, 40, 100)
+    lens = rs.randint(0, 41, 27).astype(np.int32)
+    wlens = rs.randint(0, 101, 27).astype(np.int32)
+    lens[::5], wlens[1::5] = 0, 0
+    return reads, lens, wins, wlens
+
+
+EDGES = [("narrowest window", 24), ("several tiles", 2), ("ragged tiles", 4),
+         ("no multiple of 32", 24), ("one job", 24), ("one job", 2),
+         ("jobs no multiple of the block", 24), ("all N", 24), ("all N", 2),
+         ("mixed lengths", 24), ("mixed lengths", 2)]
+
+
+@pytest.mark.parametrize("name,max_cpl", EDGES)
+def test_kernel_emulation_matches_plain_and_jnp(name, max_cpl, monkeypatch):
+    """Tolerance 0: integer DP.  With ``max_cpl`` 2 or 4 the windows span
+    several column tiles, and two warps loop over the jobs."""
+    monkeypatch.setattr(sw, "MAX_WARPS", 2)
+    arrs = _edge_arrays(name)
+    if max_cpl < 24:
+        assert sw._plan(*arrs[0].shape, arrs[2].shape[1], max_cpl)[1] > 1
+    got = emulate_kernel(*arrs, S_MM, S_GAPO, S_GAPE, max_cpl=max_cpl)
+    plain = port(*arrs)
+    jargs = [jnp.asarray(a) for a in arrs]
+    want = jscreen(*jargs, S_MM, S_GAPO, S_GAPE)
+    for ref in (plain, want):
+        np.testing.assert_array_equal(got[0], np.asarray(ref[0]))
+        np.testing.assert_array_equal(got[1], np.asarray(ref[1]))
+
+
+def test_kernel_emulation_matches_pallas_interpret():
+    arrs = cases(np.random.RandomState(7), 18, 33, 100)
+    got = emulate_kernel(*arrs, S_MM, S_GAPO, S_GAPE, max_cpl=2)
+    want = glocal_screen_pallas(*[jnp.asarray(a) for a in arrs], S_MM, S_GAPO,
+                                S_GAPE, tile=8, interpret=True)
+    np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("scores", [(1, 2, 1), (4, 6, 1), (2, 0, 3)])
+def test_kernel_emulation_other_scores(scores):
+    """Other scores than the CLI's, a free gap open among them: the ramp-free
+    coordinates and the fused minima hold for any costs."""
+    arrs = cases(np.random.RandomState(11), 18, 40, 160)
+    got = emulate_kernel(*arrs, *scores, max_cpl=2)
+    want = glocal_screen_plain(*(_t(a) for a in arrs), *scores)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+def test_plan_covers_every_window():
+    """Every width gets an even cpl of 2..24 whose tiles cover it, and a
+    tiled window one of the cpl whose tiled kernel is built; the rescue's
+    576 columns are one tile of exactly 18 a lane; the scratch of a tiled
+    window holds two rows for every launched warp and stays within its
+    cap, or within one block's rows for reads so long that those exceed it."""
+    for G in range(0, 8000):
+        cpl, n_tiles, n_warps, scratch = sw._plan(1000, 150, G)
+        assert cpl % 2 == 0 and 2 <= cpl <= sw.MAX_CPL
+        assert n_tiles * 32 * cpl >= G
+        assert (n_tiles - 1) * 32 * cpl < max(G, 1)
+        assert (n_tiles == 1) == (G <= 32 * sw.MAX_CPL)
+        assert n_tiles == 1 or cpl >= sw.MIN_TILED_CPL
+        assert n_warps == 1000 if n_tiles == 1 else 1 <= n_warps <= 1000
+        assert scratch == (0 if n_tiles == 1 else -(-n_warps // 4) * 4 * 300)
+    assert sw._plan(1000, 150, 769)[:2] == (sw.MIN_TILED_CPL, 2)
+    assert sw._plan(2076, 150, 576) == (18, 1, 2076, 0)
+    assert sw._plan(5, 150, 158)[:2] == (6, 1)
+    assert sw._plan(16384, 150, 2048)[2] == sw.MAX_WARPS
+    # long reads: fewer warps, so that the scratch stays within its cap
+    for L in (50_000, 10 ** 6):
+        cpl, n_tiles, n_warps, scratch = sw._plan(16384, L, 2048)
+        assert n_tiles == 3 and 4 <= n_warps < sw.MAX_WARPS
+        assert n_warps % 4 == 0 and scratch == n_warps * 2 * L
+        assert scratch * 4 <= sw.SCRATCH_BYTES
+    # reads so long that one block's rows exceed the cap: one block
+    assert sw._plan(16384, 10 ** 8, 2048)[2:] == (4, 8 * 10 ** 8)
+    assert sw._plan(3, 10 ** 6, 2048)[2:] == (3, 8 * 10 ** 6)
