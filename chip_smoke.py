@@ -39,8 +39,12 @@ any result.
    mismatches, every fourth also with a 1-bp deletion.
 4. Checks: mapped fraction >= 0.95; mapped reads within 2 bp of their
    origin >= 0.99; the select kernel's launch count during phase 3 alone
-   equals 2 x n_steps x batches; the first 256 reads through ``align
-   --device cpu`` (the plain path) give a byte-equal SAM.  Prints reads/s
+   equals 2 x n_steps x batches; every ``(C, B, K, window)`` that the
+   wrapper recorded for those launches is printed with its count, and one
+   that phase 2 did not hold against plain is checked and timed here as
+   phase 2 does (so after phases 7, 9 and 10, each for its own path); the
+   first 256 reads through ``align --device cpu`` (the plain path) give a
+   byte-equal SAM.  Prints reads/s
    over the whole align window and, per batch, how long its yield was
    waited for (the stream searches batches ahead, so that is no per-batch
    rate).
@@ -73,17 +77,56 @@ any result.
    ``align-pe`` on ``cuda`` and on ``cpu`` (the plain path) must give
    byte-equal SAMs.  Last, glocal_screen against plain once more, checked
    and timed as in phase 5, at the ``(R, L, G)`` of the largest screen that
-   phase 6 launched (all its shapes are printed).
-8. With ``--profile``, where the time goes on the warm card: each
+   phase 6 launched (all its shapes are printed), and select_topk's launch
+   shapes on this path as in phase 4.
+8. Pigeon main path: the 12-mer seed table of phase 3's index, built on
+   the card and written beside the index (``kmer12.npz``), then loaded from
+   that file, each timed; then ``align --engine auto --device cuda`` at
+   the CLI defaults over phase 3's reads with a 200 bp read after every
+   64th (512 reads too long for the pigeon engine: the router hands them
+   to the beam, pooled over the stream's batches), with the select
+   kernel's count set to 0 just before.
+9. Pigeon checks: reads/s over the align window and peak device memory;
+   mapped >= 0.95 and placed within 2 bp >= 0.99 over all reads; the select
+   kernel's launches during phase 8 alone, which must be above 0, and
+   their shapes: the pooled beam runs over the long reads are narrower than
+   phase 3's batches, so select_topk is held exactly against plain, and
+   timed beside the library call and its bound, at each of them (frontier
+   select and hit merge); one
+   batch through ``Aligner.align`` for the engine's fallback, ineligible,
+   trunc and retry fractions; the first 260 reads through ``align
+   --engine auto`` on ``cuda`` and on ``cpu``: byte-equal SAMs, equal to
+   the full run's first records; and the pigeon engine's records against
+   the beam's on one batch of phase 3's reads (the rule is
+   ``engine_compare``'s docstring: byte-equal but for the engines'
+   documented differences, which are listed; anything else fails).
+10. Repeat path at small size: a genome of 120,000 bp with an exact and a
+   diverged repeat family, 1,088 reads (in-repeat, diverged, straddling,
+   flank-mismatch, background, long) through ``Aligner.align_stream`` at
+   the small caps the repeat tests set, with full-segment anchors (K = 0)
+   and with 6-mer seeds forced: truncation, the ``seg_phase`` retry and
+   the pooled beam flush must all occur, ``cuda`` against ``cpu``
+   byte-equal; then select_topk against plain at every shape these flushes
+   launched it at.
+11. With ``--profile``, where the time goes on the warm card: each
    single-end batch's stream phases (search; readback + hits + locate;
    resolve) one after another with the device synchronised between them;
    one batch's search under ``torch.profiler`` (kernel launches, host
    time in torch ops, device busy time, idle share, the top kernels and
    select_topk's own, peak memory); ``align --device cuda`` twice more, warm, against the
    sequential sum; then the same per-batch phases and warm runs for
-   ``align-pe``, with the mate rescue timed apart.
-9. Prints the kernel table as one JSON line (per kernel: launches on the
-   main paths, max |err|, ms, plain_ms, library_ms, and bound_ms, the least
+   ``align-pe``, with the mate rescue timed apart; then the pigeon route:
+   per batch pack, upload + search, readback, host finalise and resolve;
+   one batch's device search under ``torch.profiler``, whole and split by
+   the engine's stages (upload, K-mer seed + anchor scan, extension loops,
+   order + slots, compaction, locate, window fetch, ungapped verify, gapped
+   screen: kernel launches, device busy, idle share); ``align --engine
+   auto`` twice more, warm.
+12. Prints the kernel table as one JSON line (per kernel: launches on the
+   main paths, max |err|, ms, plain_ms, library_ms (for select_topk those of
+   one beam step of ``align --engine beam``, with every path's own step at
+   the widest shape it launched under ``step_by_path`` and every compared
+   shape under ``shapes``), and bound_ms, the least
    time the card could take: the larger of the bytes the function must move
    over 3.35 TB/s and the integer instructions it must issue over 132 SMs x
    64 int32 lanes x the card's maximum SM clock.  For the glocal DP those
@@ -160,6 +203,18 @@ GLOCAL_EDGES = [          # name, R, L, G, lengths
     ("edge: jobs no multiple of the warps in a block", 4_099, 150, 576,
      "classes"),
 ]
+# the pigeon main path: phase 3's reads with a read too long for the engine
+# (the router hands it to the beam) after every PIGEON_LONG_EVERY-th
+PIGEON_LONG_EVERY, PIGEON_LONG_LEN = 64, 200
+PIGEON_CROSS_CHECK = 4 * (PIGEON_LONG_EVERY + 1)
+# the repeat path: a small genome (under 2^24 bp: full-segment anchors) with
+# an exact and a diverged repeat family, and caps small enough to truncate
+REPEAT = dict(bp=120_000, unit=300, copies=40, div=0.04, reads=1_024,
+              batch=256, L=90, long_every=16,
+              caps=dict(_PIGEON_SEG_CAP=4, _PIGEON_CAND_CAP=8,
+                        _PIGEON_REPEAT_THRESH=10.0,
+                        _PIGEON_RETRY_CAPS=(6, 8, 4)))
+REPEAT_CLEAN_MAPPED_MIN = 0.95
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -316,9 +371,45 @@ def select_bound_ms(key, K, n_pay, window, int32_ops_s):
             max(t_sector, t_ops) * 1e3)
 
 
-def kernel_phase(seed, int32_ops_s):
+def select_key(case):
+    """What the wrapper records of a launch: (C, B, K, window given)."""
+    return case["C"], case["B"], case["K"], bool(case["window"])
+
+
+def select_compare(case, rs, int32_ops_s):
+    """Kernel == plain exactly on one seeded case, the library yardstick the
+    same function, then median ms of the three in turns beside the bounds."""
     import torch
     from hsa_tpu_torch.kernels import select
+    C, B, K, window = select_key(case)
+    key, pays, win = make_select_case(
+        C, B, window, rs, "cuda", valid=case.get("valid", 0.3),
+        dead_every=case.get("dead_every", 0))
+    run_k = lambda: select.select_topk(key, pays, K, window=win)   # noqa: E731
+    run_p = lambda: select.select_topk_plain(key, pays, K, window=win)  # noqa: E731
+    run_l = lambda: select_library(key, pays, K, window=win)       # noqa: E731
+    k_out, p_out = run_k(), run_p()
+    torch.cuda.synchronize()        # a fault in the kernel shows here
+    err = compare_select(k_out, p_out)
+    lib_top = run_l()[0]
+    if not torch.equal(lib_top[lib_top < select.SENT],
+                       p_out[0][:K][p_out[0][:K] < select.SENT]):
+        fail("the library yardstick computes another function")
+    bound_ms, bound_by, sector_ms = select_bound_ms(
+        key, K, len(pays), win, int32_ops_s)
+    ms, plain_ms, library_ms = time_turns([run_k, run_p, run_l])
+    shape = f"[{C}, {B}] K={K}" + (" window" if window else "")
+    print(f"select_topk {case['name']} {shape}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library (topk + gathers) "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{ms / bound_ms:.2f}x), with a 32-byte sector per pick "
+          f"{sector_ms:.4f} ms ({ms / sector_ms:.2f}x), max |err| {err}")
+    return dict(case=case["name"], shape=shape, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_sector_ms=sector_ms, max_abs_err=err)
+
+
+def kernel_phase(seed, int32_ops_s):
     rs = np.random.RandomState(seed)
     B = FRONTIER["B"]
     cases = [dict(FRONTIER, name="frontier"), dict(MERGE, name="merge"),
@@ -327,37 +418,41 @@ def kernel_phase(seed, int32_ops_s):
              dict(MERGE, name="edge: no valid key in every third column",
                   window=True, dead_every=3),
              dict(FRONTIER, name="edge: width no multiple of 32", B=B - 19)]
-    shapes = []
-    for case in cases:
-        C, B, K, window = case["C"], case["B"], case["K"], case["window"]
-        key, pays, win = make_select_case(
-            C, B, window, rs, "cuda", valid=case.get("valid", 0.3),
-            dead_every=case.get("dead_every", 0))
-        run_k = lambda: select.select_topk(key, pays, K, window=win)   # noqa: E731
-        run_p = lambda: select.select_topk_plain(key, pays, K, window=win)  # noqa: E731
-        run_l = lambda: select_library(key, pays, K, window=win)       # noqa: E731
-        k_out, p_out = run_k(), run_p()
-        torch.cuda.synchronize()        # a fault in the kernel shows here
-        err = compare_select(k_out, p_out)
-        lib_top = run_l()[0]
-        if not torch.equal(lib_top[lib_top < select.SENT],
-                           p_out[0][:K][p_out[0][:K] < select.SENT]):
-            fail("the library yardstick computes another function")
-        bound_ms, bound_by, sector_ms = select_bound_ms(
-            key, K, len(pays), win, int32_ops_s)
-        ms, plain_ms, library_ms = time_turns([run_k, run_p, run_l])
-        shape = f"[{C}, {B}] K={K}" + (" window" if window else "")
-        print(f"select_topk {case['name']} {shape}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library (topk + gathers) "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{ms / bound_ms:.2f}x), with a 32-byte sector per pick "
-              f"{sector_ms:.4f} ms ({ms / sector_ms:.2f}x), max |err| {err}")
-        shapes.append(dict(case=case["name"], shape=shape, ms=ms,
-                           plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           bound_sector_ms=sector_ms, max_abs_err=err))
-        del key, pays, win, k_out, p_out, lib_top
-    return shapes
+    shapes = [select_compare(case, rs, int32_ops_s) for case in cases]
+    # the beam step's two shapes, by what the wrapper records of a launch
+    return shapes, {select_key(c): row for c, row in zip(cases[:2], shapes)}
+
+
+def select_path_phase(path, launched, compared, seed, int32_ops_s):
+    """select_topk at the shapes a main path launched it at.  Prints every
+    ``(C, B, K, window)`` of ``launched`` (the wrapper's record of the path's
+    launches) with its count; a shape that ``compared`` (shape -> row) does
+    not hold yet is checked against plain and timed like phase 2's, on
+    seeded beam-like inputs of that shape, and added.  Returns the rows of the
+    path's two widest shapes, the frontier select (window) and the hit merge
+    (none) of one beam step at the path's widest batch."""
+    if not launched:
+        fail(f"select_topk recorded no launch shape on {path}")
+    rs = np.random.RandomState(seed + 8)
+    for key in sorted(launched, key=lambda k: (-k[1], -k[0])):
+        C, B, K, window = key
+        known = key in compared
+        print(f"select_topk on {path}: {launched[key]} launches at [{C}, {B}] "
+              f"K={K}" + (" window" if window else "")
+              + (" (compared above)" if known else ""))
+        if not known:
+            kind = "frontier" if window else "merge"
+            compared[key] = select_compare(
+                dict(C=C, B=B, K=K, window=window, name=f"{path}: {kind}"),
+                rs, int32_ops_s)
+    step = []
+    for window in (True, False):
+        keys = [k for k in launched if k[3] == window]
+        if not keys:
+            fail(f"{path} launched select_topk "
+                 f"{'with' if window else 'without'} a window no time")
+        step.append(compared[max(keys, key=lambda k: (k[1], k[0]))])
+    return step
 
 
 # -- 3. main path ----------------------------------------------------------------
@@ -421,15 +516,15 @@ def ensure_index(genome, seed, workdir):
     return prefix, secs
 
 
-def run_align(prefix, fq, out_dir, device, tag):
-    """``hsa_tpu_torch.cli align --engine beam`` at the CLI defaults.
+def run_align(prefix, fq, out_dir, device, tag, engine="beam"):
+    """``hsa_tpu_torch.cli align --engine <engine>`` at the CLI defaults.
     Returns (SAM lines, header included; metrics dict)."""
     from hsa_tpu_torch import cli
     sam = os.path.join(out_dir, f"{tag}.sam")
     met = os.path.join(out_dir, f"{tag}_metrics.json")
-    if cli.main(["align", prefix, fq, "--engine", "beam", "--device", device,
+    if cli.main(["align", prefix, fq, "--engine", engine, "--device", device,
                  "-f", sam, "--metrics", met]) != 0:
-        fail(f"align --device {device} failed")
+        fail(f"align --engine {engine} --device {device} failed")
     with open(sam) as fh:
         lines = fh.read().split("\n")
     with open(met) as fh:
@@ -745,7 +840,367 @@ def pe_cross_check(prefix, r1s, r2s, workdir):
     return PE_CROSS_CHECK
 
 
-# -- 8. where the time goes (--profile) ------------------------------------------
+# -- 8-10. the pigeon engine: align --engine auto -------------------------------------
+def make_long_reads(genome, n, seed):
+    """``n`` reads of PIGEON_LONG_LEN bp with 2 mismatches, odd ones
+    reverse-strand: too long for the pigeon engine, so the router hands
+    them to the beam.  Returns (codes, origins)."""
+    rs = np.random.RandomState(seed + 5)
+    L = PIGEON_LONG_LEN
+    reads, origin = [], np.empty(n, np.int64)
+    for j in range(n):
+        p = rs.randint(0, len(genome) - L)
+        r = genome[p:p + L].copy()
+        q = rs.choice(L, size=2, replace=False)
+        r[q] = (r[q] + rs.randint(1, 4, size=2)) % 4
+        reads.append(revcomp(r) if j % 2 else r)
+        origin[j] = p
+    return reads, origin
+
+
+def interleave_long(reads, origin, longs, long_origin):
+    """A long read after every PIGEON_LONG_EVERY reads.  Returns (reads,
+    origins, src) with src[j] the index into ``reads`` or -1 for a long
+    read."""
+    out, org, src = [], [], []
+    for j, r in enumerate(reads):
+        out.append(r)
+        org.append(origin[j])
+        src.append(j)
+        if j % PIGEON_LONG_EVERY == PIGEON_LONG_EVERY - 1:
+            i = j // PIGEON_LONG_EVERY
+            out.append(longs[i])
+            org.append(long_origin[i])
+            src.append(-1)
+    return out, np.asarray(org, np.int64), np.asarray(src, np.int64)
+
+
+def kmer_table_phase(prefix):
+    """The K-mer seed table of the index, built on the card and written
+    beside the index (first use), then loaded from that file (every later
+    run).  Returns the aligner that loaded it."""
+    import torch
+    from hsa_tpu_torch.pipeline import Aligner
+    cache = os.path.join(prefix + ".hsa", "kmer12.npz")
+    if os.path.exists(cache):
+        os.remove(cache)
+    out = None
+    for want in ("built", "loaded"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        al = Aligner(prefix, engine="auto", device="cuda")
+        if al._kmer_k != 12:
+            fail(f"K-mer seeding depth {al._kmer_k} on {al.di.n} bp, not 12")
+        tk, tl = al._kmer_tables()
+        secs, how = al.kmer_table_s
+        if how != want or not os.path.exists(cache):
+            fail(f"K-mer table was {how}, expected {want} ({cache})")
+        print(f"K-mer table (K=12, 2 x {tk.numel()} entries) {how} in "
+              f"{secs:.3f} s; file {os.path.getsize(cache) / 1e6:.1f} MB; "
+              f"{int((tk <= tl).sum())} 12-mers occur; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.6f} GB")
+        out = al
+    return out
+
+
+def pigeon_batch_phase(al, mixed, n_long):
+    """One batch (phase 8's first: 100 bp reads with the long ones between)
+    through ``Aligner.align``: the engine's per-batch fractions."""
+    import torch
+    from hsa_tpu_torch.kernels import select
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = select.KERNEL.launches
+    t0 = time.perf_counter()
+    recs = al.align(mixed)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fr = dict(fallback=al.last_fallback_frac,
+              ineligible=al.last_ineligible_frac, trunc=al.last_trunc_frac,
+              retry=al.last_retry_frac)
+    print(f"one batch of {len(mixed)} reads through Aligner.align "
+          f"(engine auto): {secs:.3f} s, fractions {json.dumps(fr)}, "
+          f"profile {al._pigeon_profile}, select_topk launches "
+          f"{select.KERNEL.launches - before} (the beam re-run of the "
+          f"ineligible reads), mapped {sum(not r.flag & 4 for r in recs)}, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.6f} GB")
+    if abs(fr["ineligible"] - n_long / len(mixed)) > 1e-12:
+        fail(f"ineligible fraction {fr['ineligible']}, expected "
+             f"{n_long}/{len(mixed)}")
+    return fr
+
+
+def pigeon_cross_check(prefix, reads, workdir):
+    """The first PIGEON_CROSS_CHECK reads of the pigeon path (long reads
+    among them) through ``align --engine auto`` on the card and on the CPU:
+    byte-equal SAMs."""
+    fq = os.path.join(workdir, "pigeon_cross_check.fq")
+    write_fastq(fq, reads[:PIGEON_CROSS_CHECK])
+    card, _ = run_align(prefix, fq, workdir, "cuda", "pigeon_cross_cuda",
+                        "auto")
+    cpu, _ = run_align(prefix, fq, workdir, "cpu", "pigeon_cross_cpu", "auto")
+    if cpu != card:
+        bad = next(j for j in range(max(len(cpu), len(card)))
+                   if cpu[j:j + 1] != card[j:j + 1])
+        fail(f"align --engine auto on the CPU differs from the card at line "
+             f"{bad}:\n  card: {card[bad:bad + 1]}\n  cpu:  "
+             f"{cpu[bad:bad + 1]}")
+    return card
+
+
+# tags that may differ between the engines on an exact score tie at one
+# position (docs/PARITY.md, deviation 13: the pigeon engine keeps the minimum
+# (score, gap opens, gap extensions, mismatches) composition)
+TIE_TAGS = ("XM:i:", "XO:i:", "XG:i:")
+# fields that count suboptimal or equal-best hits: what a beam that dropped
+# frontier states under-counts (docs/PARITY.md, "DFS -> beam": the beam is
+# exact only when no beam or hit-buffer overflow occurs)
+COUNT_TAGS = ("XT:A:", "X0:i:", "X1:i:", "XA:Z:")
+
+
+def _sam_score(fields):
+    """Edit score of a mapped SAM record from its XM/XO/XG tags."""
+    tag = {f[:5]: int(f[5:]) for f in fields[11:] if f.startswith(TIE_TAGS)}
+    return sum(w * tag.get(t, 0) for w, t in zip(SCORES, TIE_TAGS))
+
+
+def _explained(fp, fbm, lossy, origin):
+    """Why a covered read's pigeon record (fields ``fp``) may differ from
+    the beam's (``fbm``), or None.  ``lossy``: the beam dropped frontier
+    states or hits for this read.  ``origin``: where the read was taken
+    from; a pigeon record at another placement than the beam's, or where the
+    beam has none, counts only when it lies within 2 bp of it."""
+    if len(fp) == len(fbm) and all(
+            x.startswith(TIE_TAGS) for x, y in zip(fp, fbm) if x != y):
+        return "tie"
+    if not lossy or int(fp[1]) & 4:
+        return None
+    at_origin = abs(int(fp[3]) - 1 - origin) <= 2
+    if int(fbm[1]) & 4:
+        return "beam lost the read" if at_origin else None
+    if (fp[1], fp[2], fp[3], fp[5]) == (fbm[1], fbm[2], fbm[3], fbm[5]):
+        rest_p = [x for x in fp[11:] if not x.startswith(COUNT_TAGS)]
+        rest_b = [x for x in fbm[11:] if not x.startswith(COUNT_TAGS)]
+        return "beam under-counted" if rest_p == rest_b else None
+    return "beam missed a better hit" \
+        if at_origin and _sam_score(fp) <= _sam_score(fbm) else None
+
+
+def engine_compare(al_p, prefix, reads, beam_lines, origin):
+    """The pigeon engine's records against the beam's on one batch of
+    phase 3's reads, both through ``Aligner`` on the card with phase 3's
+    names, qualities and read ordinals.
+
+    Rule: a read is covered when the pigeon engine neither fell back nor
+    truncated it (``fallback`` false, ``n_missed`` 0) and the beam reported
+    its occurrence list untruncated.  A covered read's two SAM records must
+    be byte-equal, but for the engines' documented differences
+    (docs/PARITY.md), which are listed: deviation 13 (the XM/XO/XG tags on
+    an exact score tie at one position); and, only where the beam dropped
+    frontier states or hits for that read ("DFS -> beam": its search at
+    W=64 is then not exhaustive, while the pigeon screen is), a pigeon record
+    that is no worse: the read mapped, within 2 bp of where it was taken
+    from (``origin``), where the beam lost it; the same placement and CIGAR
+    with other MAPQ, XT, X0, X1 or XA; or another placement, within 2 bp of
+    the read's origin, of a score no higher than the beam's.  Anything else
+    fails.  The count of covered reads for which the beam dropped nothing,
+    and which are therefore held to the strict rule alone, is printed.  The
+    beam's records must be phase 3's own lines."""
+    from collections import Counter
+    from hsa_tpu_torch.pipeline import Aligner
+    from hsa_tpu_torch.search import pigeon as pg
+    n = len(reads)
+    names = [f"r{j}" for j in range(n)]
+    quals = ["I" * len(r) for r in reads]
+    h = al_p._align_device(reads)
+    if h[0] != "pigeon" or len(h[2]) != n:
+        fail("phase 3's reads did not all route to the pigeon engine")
+    _, fb, missed = pg.pigeon_occ_arrays(h[4], n, al_p.opt, h[5])
+    sam_p = al_p._align_finish(h, names, quals, emit="sam")[0]
+    al_b = Aligner(prefix, engine="beam", device="cuda")
+    hb = al_b._align_device(reads)
+    occ, trunc, c2x = al_b._align_occ(hb)
+    ld, hd = (np.asarray(x, np.int64) for x in al_b.last_overflow)
+    sam_b = al_b._resolve_occ(hb[1], names, quals, occ, trunc, c2x,
+                              emit="sam")[0]
+    if sam_b != beam_lines[:n]:
+        fail("the beam's records through Aligner differ from phase 3's SAM")
+    lossy = (ld[:n] + ld[n:] + hd[:n] + hd[n:]) > 0    # both strands' lanes
+    covered = ~fb & (missed == 0) & ~np.asarray(trunc, bool)
+    equal = np.fromiter((a == b for a, b in zip(sam_p, sam_b)), bool, n)
+    kinds, shown, other = Counter(), Counter(), []
+    for j in np.nonzero(covered & ~equal)[0]:
+        why = _explained(sam_p[j].split("\t"), sam_b[j].split("\t"),
+                         bool(lossy[j]), int(origin[j]))
+        if why is None:
+            other.append(j)
+            continue
+        kinds[why] += 1
+        if shown[why] < 2:
+            shown[why] += 1
+            print(f"  listed ({why}): {sam_p[j]}\n      the beam's: {sam_b[j]}")
+    print(f"engine comparison on {n} reads: {int(covered.sum())} covered "
+          f"(pigeon fell back on {int(fb.sum())}, truncated "
+          f"{int((missed > 0).sum())}; the beam truncated "
+          f"{int(np.sum(trunc))}), of them {int((covered & equal).sum())} "
+          f"byte-equal; the beam dropped states or hits on "
+          f"{int(lossy.sum())} reads, so {int((covered & ~lossy).sum())} "
+          f"covered reads are held to byte-equality or a tie alone, and a "
+          f"record that differs otherwise must lie within 2 bp of its read's "
+          f"origin; listed differences "
+          f"{json.dumps(dict(kinds))} (docs/PARITY.md: deviation 13; DFS -> "
+          f"beam); {len(other)} differ otherwise")
+    if other:
+        j = other[0]
+        fail(f"{len(other)} covered reads differ between the engines in a way "
+             f"no documented difference explains, first r{j} (beam dropped "
+             f"states or hits: {bool(lossy[j])}):\n  pigeon: {sam_p[j]}\n  "
+             f"beam:   {sam_b[j]}")
+    if covered.sum() < 0.9 * n:
+        fail(f"the comparison covered only {int(covered.sum())} of {n} reads")
+
+
+def make_repeat_case(seed):
+    """The repeat path's genome and reads (tests/test_pigeon_repeats.py's
+    families in one text): i.i.d. background; an exact family of
+    REPEAT['copies'] copies in the first quarter and a diverged one (about
+    REPEAT['div'] differences a base) in the second.  Read classes by
+    ``j % 8``: 0 inside an exact copy (capped enumeration: truncated), 1
+    from a diverged copy with 2 mismatches (pass 1 misses it: seg_phase
+    retry), 2 straddling a copy's start, 3 ten bases of flank with both
+    mismatches there (over-extension), 4..7 background reads with 2
+    mismatches, every other with a 1-bp deletion; after every
+    ``long_every``-th read a 200 bp read for the beam.  Odd reads
+    reverse-strand.  Returns (genome, reads, clean mask)."""
+    c = REPEAT
+    rs = np.random.RandomState(seed + 6)
+    n, U, L = c["bp"], c["unit"], c["L"]
+    g = rs.randint(0, 4, n).astype(np.int8)
+    step = (n // 4) // (c["copies"] + 2)
+    fams = []
+    for f, div in enumerate((0.0, c["div"])):
+        unit = rs.randint(0, 4, U).astype(np.int8)
+        starts = []
+        for i in range(c["copies"]):
+            u = unit.copy()
+            m = rs.rand(U) < div
+            u[m] = (u[m] + rs.randint(1, 4, int(m.sum()))) % 4
+            p = f * (n // 4) + (i + 1) * step
+            g[p:p + U] = u
+            starts.append(p)
+        fams.append(starts)
+    reads, clean = [], []
+
+    def put(r, is_clean):
+        reads.append(revcomp(r) if len(reads) % 2 else r.astype(np.int8))
+        clean.append(is_clean)
+
+    def mismatch(r, lo, hi, k=2):
+        q = lo + rs.choice(hi - lo, size=k, replace=False)
+        r[q] = (r[q] + rs.randint(1, 4, size=k)) % 4
+        return r
+
+    for j in range(c["reads"]):
+        kind = j % 8
+        if kind == 0:
+            p = fams[0][rs.randint(c["copies"])] + rs.randint(0, U - L)
+            put(g[p:p + L].copy(), False)
+        elif kind == 1:
+            p = fams[1][rs.randint(c["copies"])] + rs.randint(0, U - L)
+            put(mismatch(g[p:p + L].copy(), 0, L), False)
+        elif kind == 2:
+            p = fams[0][rs.randint(c["copies"])] - 40
+            put(g[p:p + L].copy(), False)
+        elif kind == 3:
+            p = fams[0][rs.randint(c["copies"])] - 10
+            put(mismatch(g[p:p + L].copy(), 0, 10), False)
+        else:
+            dele = kind % 2
+            p = rs.randint(n // 2 + 100, n - L - 2)
+            r = g[p:p + L + dele].copy()
+            if dele:
+                cut = rs.randint(8, L - 8)
+                r = np.concatenate([r[:cut], r[cut + 1:]])
+            put(mismatch(r, 0, L), True)
+        if j % c["long_every"] == c["long_every"] - 1:
+            p = rs.randint(n // 2 + 100, n - PIGEON_LONG_LEN)
+            put(mismatch(g[p:p + PIGEON_LONG_LEN].copy(), 0, PIGEON_LONG_LEN),
+                True)
+    return g, reads, np.asarray(clean, bool)
+
+
+def repeat_run(cls, prefix, reads, device):
+    """``align_stream`` of ``cls`` (an Aligner at REPEAT's small caps) over
+    the repeat reads.  Returns (SAM lines, per-batch (fallback, trunc,
+    retry) fractions, select launches)."""
+    from hsa_tpu_torch.kernels import select
+    al = cls(prefix, engine="auto", device=device)
+    for k, v in REPEAT["caps"].items():
+        setattr(al, k, v)
+    B = REPEAT["batch"]
+
+    def batches():
+        for s in range(0, len(reads), B):
+            yield s, None, reads[s:s + B], None
+    before = select.KERNEL.launches
+    lines, flags, stats = [], [], []
+    for _, (ln, fl) in al.align_stream(batches(), emit="sam", fb_group=2):
+        lines += ln
+        flags += fl
+        stats.append((al.last_fallback_frac, al.last_trunc_frac,
+                      al.last_retry_frac))
+    return lines, np.asarray(flags), stats, select.KERNEL.launches - before
+
+
+def repeat_phase(seed, workdir):
+    """The repeat path on the card and on the CPU, with full-segment
+    anchors (K = 0, what a genome of this size gets) and with 6-mer seeds
+    forced (so that the in-segment extension of wide K-mer anchors runs
+    too): truncation, the seg_phase retry and the pooled beam flush (the
+    long reads and the reads whose retry failed too) must all have
+    happened, and the SAMs must be byte-equal."""
+    from hsa_tpu_torch.pipeline import Aligner
+
+    class Seeded(Aligner):
+        _kmer_k = 6
+
+    genome, reads, clean = make_repeat_case(seed)
+    prefix, _ = ensure_index(genome, seed, workdir)
+    total = 0
+    for name, cls in (("K=0 full-segment anchors", Aligner),
+                      ("K=6 seeds forced", Seeded)):
+        t0 = time.perf_counter()
+        card, flags, stats, launches = repeat_run(cls, prefix, reads, "cuda")
+        t1 = time.perf_counter()
+        cpu, _, cpu_stats, _ = repeat_run(cls, prefix, reads, "cpu")
+        t2 = time.perf_counter()
+        fbk, trunc, retry = (max(x[i] for x in stats) for i in range(3))
+        mapped = float((flags[clean] & 4 == 0).mean())
+        print(f"repeat path, {name}: {len(reads)} reads in {len(stats)} "
+              f"batches on {len(genome)} bp; per batch at most fallback "
+              f"{fbk:.6f}, trunc {trunc:.6f}, retry {retry:.6f}; "
+              f"select_topk launches {launches} (the pooled beam flushes); "
+              f"clean reads mapped {mapped:.6f} (min "
+              f"{REPEAT_CLEAN_MAPPED_MIN}), all reads mapped "
+              f"{float((flags & 4 == 0).mean()):.6f}; cuda {t1 - t0:.3f} s, "
+              f"cpu {t2 - t1:.3f} s")
+        if card != cpu or stats != cpu_stats:
+            bad = next((j for j in range(len(card)) if card[j] != cpu[j]), -1)
+            fail(f"repeat path ({name}): cuda and cpu differ at record {bad}"
+                 f":\n  cuda: {card[bad:bad + 1]}\n  cpu:  {cpu[bad:bad + 1]}"
+                 f"\n  stats {stats} / {cpu_stats}")
+        if not (trunc > 0 and retry > 0 and launches > 0):
+            fail(f"repeat path ({name}): truncation, the seg_phase retry and "
+                 f"the pooled beam must all occur (trunc {trunc}, retry "
+                 f"{retry}, select launches {launches})")
+        if mapped < REPEAT_CLEAN_MAPPED_MIN:
+            fail(f"repeat path ({name}): clean reads mapped {mapped}")
+        total += launches
+    return total
+
+
+# -- 11. where the time goes (--profile) -----------------------------------------
 def profile_phase(prefix, reads, opt_dict, fq, workdir):
     import torch
     from torch.autograd import DeviceType
@@ -859,6 +1314,124 @@ def profile_pe_phase(prefix, r1s, r2s, fq1, fq2, workdir):
               f"sequential sum {seq:.6f} s")
 
 
+def profile_pigeon_phase(prefix, reads, fq, workdir):
+    """The pigeon route on the warm card: each batch's pipeline stages one
+    after another with the device synchronised between them (host clock);
+    one batch's device search under ``torch.profiler``, whole (kernel
+    launches, device busy, idle share, peak memory) and then split by the
+    engine's stages (``pigeon_search``'s ``on_stage`` hook: the device is
+    synchronised where a stage ends, so a stage's kernels lie inside its
+    range); then ``align --engine auto --device cuda`` twice more on phase
+    3's reads, which are all eligible."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile, record_function)
+    from hsa_tpu_torch.pipeline import Aligner, ReadBatch
+    from hsa_tpu_torch.search import pigeon as pg
+    al = Aligner(prefix, engine="auto", device="cuda")
+    al.align(reads[:BATCH])                     # warm: tables, text rows
+    seq = 0.0
+    for s in range(0, len(reads), BATCH):
+        rb = ReadBatch.from_reads(reads[s:s + BATCH])
+        n_seg, elig = al._pigeon_split(rb)
+        if len(elig) != len(rb):
+            fail("phase 3's reads are not all eligible for the pigeon engine")
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        buf, shape = al._pigeon_pack(rb, n_seg)
+        t.append(time.perf_counter())
+        res = al._pigeon_device(buf, shape, n_seg)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        host = pg.fetch_result(res)
+        t.append(time.perf_counter())
+        h = ("pigeon", rb, elig, rb, host, al._pigeon_caps("base")[1], n_seg)
+        occ, trunc, c2x = al._align_occ(h)
+        t.append(time.perf_counter())
+        al._resolve_occ(rb, None, None, occ, trunc, c2x, read_offset=s,
+                        emit="sam")
+        t.append(time.perf_counter())
+        d = np.diff(t)
+        seq += t[-1] - t[0]
+        print(f"sequential pigeon batch at {s}: pack {d[0]:.6f} s, upload + "
+              f"search {d[1]:.6f} s, readback {d[2]:.6f} s, host finalise "
+              f"{d[3]:.6f} s, resolve {d[4]:.6f} s, sum {t[-1] - t[0]:.6f} s "
+              f"(shape R, SL, B2, RW = {shape}, n_seg {n_seg}, upload "
+              f"{buf.nbytes / 1e6:.3f} MB)")
+    print(f"sequential pigeon: {len(reads)} reads in {seq:.6f} s "
+          f"({len(reads) / seq:.1f} reads/s)")
+
+    rb = ReadBatch.from_reads(reads[:BATCH])
+    n_seg, _ = al._pigeon_split(rb)
+    buf, shape = al._pigeon_pack(rb, n_seg)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def device_events(prof):      # kernels and copies, not the stages' ranges
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.name.startswith("pigeon:")]
+        if not kern:
+            fail("the profiler recorded no device kernels")
+        return kern
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        al._pigeon_device(buf, shape, n_seg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = device_events(prof)
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+    print(f"profiled pigeon search of {BATCH} reads: wall {wall:.6f} s, "
+          f"{len(kern)} device kernels and copies, device busy {busy:.6f} s, "
+          f"idle share {1 - busy / wall:.6f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.6f} GB")
+    per = defaultdict(lambda: [0, 0.0])
+    for e in kern:
+        per[e.name][0] += 1
+        per[e.name][1] += e.time_range.elapsed_us() / 1e3
+    for name, (n, ms) in sorted(per.items(), key=lambda x: -x[1][1])[:8]:
+        print(f"  {ms:10.3f} ms {n:6d} launches  {name[:90]}")
+
+    open_range = []
+
+    def on_stage(name):     # close the stage that ends, drained; open the next
+        if open_range:
+            torch.cuda.synchronize()
+            open_range.pop().__exit__(None, None, None)
+        if name is not None:
+            open_range.append(record_function(f"pigeon:{name}"))
+            open_range[-1].__enter__()
+
+    with profile(activities=acts) as prof:
+        al._pigeon_device(buf, shape, n_seg, on_stage=on_stage)
+        torch.cuda.synchronize()
+    kern = device_events(prof)
+    stages = [e for e in prof.events() if e.name.startswith("pigeon:")
+              and e.device_type == DeviceType.CPU]
+    if not stages:
+        fail("the profiler recorded no pigeon stage")
+    for st in stages:
+        inside = [e for e in kern if st.time_range.start
+                  <= e.time_range.start <= st.time_range.end]
+        dev_ms = sum(e.time_range.elapsed_us() for e in inside) / 1e3
+        wall_ms = st.time_range.elapsed_us() / 1e3
+        print(f"  stage {st.name[7:]:12s} wall {wall_ms:9.3f} ms "
+              f"(synchronised at its end), {len(inside):5d} device kernels "
+              f"and copies, device busy {dev_ms:9.3f} ms, idle share "
+              f"{1 - dev_ms / wall_ms:.3f}")
+    del al, prof, kern
+
+    for rep in range(2):
+        _, met = run_align(prefix, fq, workdir, "cuda", f"stream_pigeon{rep}",
+                           "auto")
+        w = align_window(met)
+        print(f"warm align --engine auto --device cuda, run {rep}: "
+              f"{met['reads_in']} reads in an align window of {w:.3f} s "
+              f"({met['reads_in'] / w:.1f} reads/s), sequential sum "
+              f"{seq:.6f} s; index load {met['t_index_load_s']} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -896,7 +1469,7 @@ def main():
         return
 
     phase("2. select_topk kernel against its plain version on the card")
-    shapes = kernel_phase(a.seed, int32_ops_s)
+    shapes, compared = kernel_phase(a.seed, int32_ops_s)
 
     phase("3. main path: index + align --engine beam --device cuda")
     workdir = os.path.join(ROOT, "hsa_tpu_torch", "_build", "smoke")
@@ -908,15 +1481,22 @@ def main():
           f" ({GENOME_BP} bp)")
     reads, origin = make_reads(genome, N_READS, a.seed)
     r1s, r2s, pe_origin = make_pairs(genome, PE_PAIRS, a.seed)
+    n_long = N_READS // PIGEON_LONG_EVERY
+    p_reads, p_origin, p_src = interleave_long(
+        reads, origin, *make_long_reads(genome, n_long, a.seed))
     del genome
     fq = os.path.join(workdir, f"reads_{GENOME_BP}_s{a.seed}.fq")
     write_fastq(fq, reads)
+    p_fq = os.path.join(workdir, f"reads_pigeon_{GENOME_BP}_s{a.seed}.fq")
+    write_fastq(p_fq, p_reads)
     fq1, fq2 = write_pairs(workdir, f"pairs_{GENOME_BP}_s{a.seed}", r1s, r2s)
     print(f"genome + reads ready in {time.perf_counter() - t0:.3f} s")
     torch.cuda.synchronize()
     select.KERNEL.launches = 0
+    select.KERNEL.launch_shapes.clear()
     lines, met = run_align(prefix, fq, workdir, "cuda", "smoke")
     launches = select.KERNEL.launches
+    se_launched = dict(select.KERNEL.launch_shapes)
 
     phase("4. checks")
     batches = met.get("batches", [])
@@ -945,6 +1525,8 @@ def main():
         fail(f"placed fraction {placed} < {PLACED_MIN}")
     if launches == 0 or launches != want:
         fail(f"select_topk launched {launches} times, expected {want}")
+    by_path = {"align": select_path_phase(
+        "align --engine beam", se_launched, compared, a.seed, int32_ops_s)}
     t0 = time.perf_counter()
     n = cross_check(prefix, reads, lines, workdir)
     print(f"cross-check: align --device cpu on the first {n} reads gives a "
@@ -958,10 +1540,12 @@ def main():
     torch.cuda.synchronize()
     select.KERNEL.launches = sw.KERNEL.launches = 0
     sw.KERNEL.launch_shapes.clear()
+    select.KERNEL.launch_shapes.clear()
     pe_lines, pe_met = run_align_pe(prefix, fq1, fq2, workdir, "cuda",
                                     "smoke_pe")
     pe_select, pe_glocal = select.KERNEL.launches, sw.KERNEL.launches
-    pe_launched = list(sw.KERNEL.launch_shapes)
+    pe_launched = sorted(sw.KERNEL.launch_shapes.elements())
+    pe_sel_launched = dict(select.KERNEL.launch_shapes)
 
     phase("7. paired-end checks")
     pe_batches = pe_met.get("batches", [])
@@ -1012,22 +1596,111 @@ def main():
         fail(f"glocal_screen was launched at {pe_launched}, the batches had "
              f"{want_r} rescue jobs")
     glocal.append(glocal_main_path_phase(a.seed, pe_launched, int32_ops_s))
+    by_path["align-pe"] = select_path_phase(
+        "align-pe --engine beam", pe_sel_launched, compared, a.seed,
+        int32_ops_s)
+
+    phase("8. pigeon main path: align --engine auto --device cuda")
+    al_p = kmer_table_phase(prefix)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    select.KERNEL.launches = 0
+    select.KERNEL.launch_shapes.clear()
+    pg_lines, pg_met = run_align(prefix, p_fq, workdir, "cuda", "smoke_pigeon",
+                                 "auto")
+    pg_select = select.KERNEL.launches
+    pg_launched = dict(select.KERNEL.launch_shapes)
+    pg_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    phase("9. pigeon checks")
+    pg_batches = pg_met.get("batches", [])
+    for i, b in enumerate(pg_batches):
+        print(f"batch {i}: {b['n']} reads, profile {b['profile']}, fallback "
+              f"{b['fallback']}, trunc {b['trunc']}, retry {b['retry']}, yield "
+              f"waited for {b['wait_s']:.6f} s")
+    w = align_window(pg_met)
+    print(f"align --engine auto: {pg_met['reads_in']} reads ({n_long} of "
+          f"{PIGEON_LONG_LEN} bp for the beam) in an align window of {w:.3f} "
+          f"s ({pg_met['reads_in'] / w:.1f} reads/s, first run: includes "
+          f"first-use warm-up); index load, with the K-mer table's, "
+          f"{pg_met['t_index_load_s']} s; peak device memory {pg_peak:.6f} "
+          f"GB")
+    if pg_met["config"]["engine"] != "auto" or \
+            pg_met["config"]["batch"] != BATCH or \
+            len(pg_batches) != -(-len(p_reads) // BATCH):
+        fail(f"align --engine auto ran {len(pg_batches)} batches of "
+             f"{pg_met['config']['batch']} with engine "
+             f"{pg_met['config']['engine']}")
+    pg_records = [l for l in pg_lines if not l.startswith("@")]
+    pg_mapped, pg_placed = check_placement(pg_records, p_origin)
+    long_mapped = sum(not int(pg_records[j].split("\t", 2)[1]) & 4
+                      for j in np.nonzero(p_src < 0)[0])
+    print(f"mapped fraction {pg_mapped:.6f} (min {MAPPED_MIN}); placed within "
+          f"2 bp {pg_placed:.6f} (min {PLACED_MIN}); long reads mapped "
+          f"{long_mapped} of {n_long}; overflow reads "
+          f"{pg_met.get('beam_overflow_reads', 0)}")
+    long_steps = PIGEON_LONG_LEN + opt["max_gapo"] + opt["max_gape"]
+    print(f"select_topk launches on the pigeon path: {pg_select} (2 x "
+          f"{long_steps} steps = {2 * long_steps} for each pooled beam run "
+          f"over the reads the router or the engine handed to the beam)")
+    if pg_mapped < MAPPED_MIN:
+        fail(f"pigeon path: mapped fraction {pg_mapped} < {MAPPED_MIN}")
+    if pg_placed < PLACED_MIN:
+        fail(f"pigeon path: placed fraction {pg_placed} < {PLACED_MIN}")
+    if pg_select == 0 or sum(pg_launched.values()) != pg_select:
+        fail(f"select_topk was launched {pg_select} times on the pigeon path "
+             f"and recorded {sum(pg_launched.values())} launch shapes")
+    by_path["align --engine auto"] = select_path_phase(
+        "align --engine auto", pg_launched, compared, a.seed, int32_ops_s)
+    fractions = pigeon_batch_phase(al_p, p_reads[:BATCH], sum(p_src[:BATCH] < 0))
+    t0 = time.perf_counter()
+    card = pigeon_cross_check(prefix, p_reads, workdir)
+    same = card == pg_lines[:len(card)]
+    print(f"cross-check: align --engine auto on the first "
+          f"{PIGEON_CROSS_CHECK} reads gives byte-equal SAMs on cuda and cpu "
+          f"({time.perf_counter() - t0:.3f} s); they "
+          f"{'equal' if same else 'DIFFER FROM'} the first records of the "
+          f"full run")
+    if not same:
+        fail("the prefix's SAM differs from the full run's first records")
+    n_hdr = sum(l.startswith("@") for l in lines)
+    engine_compare(al_p, prefix, reads[:BATCH], lines[n_hdr:], origin[:BATCH])
+    del al_p
+
+    phase("10. repeat path at small size: align_stream with small caps, "
+          "cuda against cpu")
+    select.KERNEL.launch_shapes.clear()
+    repeat_select = repeat_phase(a.seed, workdir)
+    rp_launched = dict(select.KERNEL.launch_shapes)
+    if sum(rp_launched.values()) != repeat_select:
+        fail(f"the repeat path launched select_topk {repeat_select} times and "
+             f"recorded {sum(rp_launched.values())} launch shapes")
+    by_path["repeat path (align_stream)"] = select_path_phase(
+        "the repeat path", rp_launched, compared, a.seed, int32_ops_s)
 
     if a.profile:
-        phase("8. where the time goes (warm card)")
+        phase("11. where the time goes (warm card)")
         profile_phase(prefix, reads, opt, fq, workdir)
         profile_pe_phase(prefix, r1s, r2s, fq1, fq2, workdir)
+        profile_pigeon_phase(prefix, reads, fq, workdir)
 
-    # per beam step: the frontier select and the hit merge, one launch each
-    step = shapes[:2]
+    # per beam step: the frontier select and the hit merge, one launch each;
+    # the row's own times are those of align --engine beam's step, and
+    # step_by_path has every path's at the widest shape it launched
+    step = by_path["align"]
+    sums = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_sector_ms")
+    shapes += [r for r in compared.values() if r not in shapes]
     print(json.dumps({"kernels": [{
         "name": "select_topk", "route": "cuda",
         "source": "hsa_tpu_torch/csrc/select_topk.cu",
         "replaces": "hsa_tpu/kernels/select.py:51",
-        "launches": launches + pe_select,
-        "launches_by_path": {"align": launches, "align-pe": pe_select},
+        "launches": launches + pe_select + pg_select,
+        "launches_by_path": {"align": launches, "align-pe": pe_select,
+                             "align --engine auto": pg_select,
+                             "repeat path (align_stream)": repeat_select},
         "launches_per_batch": {"align": launches // len(batches),
                                "align-pe": pe_select // len(pe_batches)},
+        "pigeon_fractions": fractions,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": sum(s["ms"] for s in step),
         "plain_ms": sum(s["plain_ms"] for s in step),
@@ -1036,6 +1709,10 @@ def main():
         "bound_by": step[0]["bound_by"],
         "library_ms": sum(s["library_ms"] for s in step),
         "ms_per": "one beam step: frontier select + hit merge",
+        "step_by_path": {
+            path: dict({k: sum(r[k] for r in rows) for k in sums},
+                       shapes=[r["shape"] for r in rows])
+            for path, rows in by_path.items()},
         "shapes": shapes}, {
         "name": "glocal_screen", "route": "cuda",
         "source": "hsa_tpu_torch/csrc/glocal_screen.cu",

@@ -8,8 +8,11 @@ layer (``config``, ``alphabet``, ``refpack`` with its native sources under
 module names.  The index directory format is unchanged, so both packages
 read and write the same index.
 
-Covered so far: single-end and paired-end alignment through the exhaustive
-beam engine (``engine="beam"``), from index to SAM.  Both Pallas kernels of
+Covered so far, from index to SAM: single-end alignment through the
+pigeonhole seed-and-verify engine with the beam as its fallback
+(``engine="auto"``, ``search/pigeon.py``), and single-end and paired-end
+alignment through the exhaustive beam engine (``engine="beam"``).  Both
+Pallas kernels of
 ``hsa_tpu`` are hand-written CUDA kernels: the top-K selection of every beam
 step (``kernels/select.py``, ``csrc/select_topk.cu``) and the glocal DP that
 screens the paired-end mate rescues (``kernels/sw.py``,

@@ -1,16 +1,18 @@
 """Command-line interface of the port (counterpart of ``hsa_tpu/cli.py``).
 
 Subcommands: ``index`` (both packages read and write the same index
-directory), ``align`` (fused search + resolution -> SAM) and
-``align-pe`` (paired ends, with mate rescue), beam engine only.  Options,
-the ``--resume`` manifests and the ``--metrics`` JSON are ``hsa-tpu
-align``'s and ``align-pe``'s; ``--device`` picks the torch device.
-``sampe`` waits for ``aln`` and raises.
+directory), ``align`` (fused search + resolution -> SAM; ``--engine
+auto|pigeon|beam``, default ``auto``: the pigeonhole engine with the beam
+as its fallback) and ``align-pe`` (paired ends, with mate rescue; beam
+engine only so far).  Options, the ``--resume`` manifests and the
+``--metrics`` JSON are ``hsa-tpu align``'s and ``align-pe``'s; ``--device``
+picks the torch device.  ``sampe`` waits for ``aln`` and raises.
 
 Usage:
     python -m hsa_tpu_torch.cli index ref.fa [-p prefix] [-s sa_intv]
     python -m hsa_tpu_torch.cli align prefix reads.fq [-f out.sam]
-        [--device cuda] [--metrics m.json] [--resume] [search opts]
+        [--engine auto] [--device cuda] [--metrics m.json] [--resume]
+        [search opts]
     python -m hsa_tpu_torch.cli align-pe prefix r1.fq r2.fq [-f out.sam]
         [-a max_isize] [--device cuda] [--metrics m.json] [--resume]
         [search opts]
@@ -36,7 +38,8 @@ from .io.fastq_fast import FastqBatcher
 from .io.fastx import read_fasta, read_fastq, trim_read_length
 from .io.sam import sam_header
 from .metrics import RunMetrics
-from .pipeline import Aligner, ReadBatch, build_index
+from .pipeline import (ENGINES, PE_ENGINE_TODO, Aligner, ReadBatch,
+                       build_index)
 from .refpack import ensure_refpack
 
 SAMPE_TODO = ("sampe: the two-phase paired flow waits for `aln` (ROADMAP.md "
@@ -272,8 +275,8 @@ def cmd_align(argv):
                         "to this dir")
     p.add_argument("--resume", action="store_true",
                    help="resume an interrupted run from its .manifest.json")
-    p.add_argument("--engine", default="beam", choices=("beam",),
-                   help="search engine (only the beam is ported so far)")
+    p.add_argument("--engine", default="auto", choices=ENGINES,
+                   help="search engine routing (default auto)")
     p.add_argument("--device", default="cuda",
                    help="torch device to search on (default cuda)")
     _add_search_opts(p)
@@ -287,6 +290,7 @@ def cmd_align(argv):
     with met.timer("index_load"):
         al = Aligner(a.prefix, opt, ladder=ladder, engine=a.engine,
                      device=a.device)
+        al.warm_pigeon()       # K-mer tables: built once, loaded after
     args_key = f"align|{a.reads}|{a.batch}|{a.beam_width}|{a.n}"
     done = _load_manifest(a.out, args_key) if a.resume else 0
     mode = "a" if (a.resume and done) else "w"
@@ -356,13 +360,15 @@ def cmd_align_pe(argv):
     p.add_argument("--metrics", default=None, help="write run metrics JSON here")
     p.add_argument("--resume", action="store_true",
                    help="resume an interrupted run from its .manifest.json")
-    p.add_argument("--engine", default="beam",
-                   choices=("auto", "pigeon", "beam"),
-                   help="search engine (only the beam is ported so far)")
+    p.add_argument("--engine", default="beam", choices=ENGINES,
+                   help="search engine (only the beam is ported for "
+                        "paired ends so far)")
     p.add_argument("--device", default="cuda",
                    help="torch device to search and rescue on (default cuda)")
     _add_search_opts(p)
     a = p.parse_args(argv)
+    if a.engine != "beam":
+        raise NotImplementedError(PE_ENGINE_TODO.format(a.engine))
     met = RunMetrics()
     opt = _opt_from_args(a)
     met.config = dict(cmd="align-pe", reads1=a.reads1, reads2=a.reads2,

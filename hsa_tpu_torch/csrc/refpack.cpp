@@ -185,6 +185,137 @@ int rp_fastq_batch(const char* buf, int64_t buflen, int64_t* pos_io,
 #include <vector>
 
 // ---------------------------------------------------------------------------
+// Pigeon-engine batch packer (host side of hsa_tpu_torch.search.pigeon).
+//
+// Packs a forward-strand codes matrix (both strands emitted here) into the
+// fused uint32 upload buffer of pack_pigeon_upload: regions
+//   [segs4 R*S4][soff|slen R][kmer|ok<<24|short<<25 R]
+//   [rw B2*RW][nmask B2*RW][lens|md<<16 B2]
+// with R = n_seg*B2, lanes seg-major (r = s*B2 + lane), lane j in [0,B)
+// forward and lane B+j its reverse complement.  Bit-for-bit equal to the
+// numpy packer, pack_pigeon_batch + pack_pigeon_upload
+// (tests/test_torch_pigeon.py); threaded scalar code.
+
+
+extern "C" int rp_pigeon_pack(
+    const uint8_t* codes, const int32_t* lens, const int32_t* md,
+    int64_t B, int64_t Lmax, int32_t n_seg, int32_t K, int32_t tail,
+    uint32_t* buf) {
+  if (B <= 0 || Lmax <= 0 || n_seg <= 0) return -1;
+  const int64_t B2 = 2 * B;
+  const int64_t seg_max = (Lmax + n_seg - 1) / n_seg + 1;
+  int64_t SL;
+  if (K > 0) {
+    SL = seg_max - K < (int64_t)tail ? seg_max - K : (int64_t)tail;
+    if (SL < 1) SL = 1;
+  } else {
+    SL = seg_max > 1 ? seg_max : 1;
+  }
+  const int64_t RW = (Lmax + 15) / 16 + 1;
+  const int64_t S4 = (SL + 3) / 4;
+  const int64_t R = (int64_t)n_seg * B2;
+  uint32_t* segs4 = buf;
+  uint32_t* soff_len = segs4 + R * S4;
+  uint32_t* kmer_fl = soff_len + R;
+  uint32_t* rw = kmer_fl + R;
+  uint32_t* nmask = rw + B2 * RW;
+  uint32_t* lens_md = nmask + B2 * RW;
+
+  uint32_t pow4[16];
+  pow4[0] = 1;
+  for (int i = 1; i < 16; ++i) pow4[i] = pow4[i - 1] * 4;
+
+  auto work = [&](int64_t lo, int64_t hi) {
+    std::vector<uint8_t> segbytes(SL);
+    for (int64_t lane = lo; lane < hi; ++lane) {
+      const int64_t j = lane % B;
+      const bool rc = lane >= B;
+      const int32_t L = lens[j];
+      const uint8_t* row = codes + j * Lmax;
+      auto get = [&](int64_t i) -> uint8_t {
+        uint8_t c = row[rc ? (L - 1 - i) : i];
+        return (rc && c <= 3) ? (uint8_t)(3 - c) : c;
+      };
+      // packed read words + N mask
+      for (int64_t w = 0; w < RW; ++w) {
+        uint32_t rwv = 0, nmv = 0;
+        const int64_t base = w * 16;
+        for (int b16 = 0; b16 < 16; ++b16) {
+          const int64_t p = base + b16;
+          if (p < L) {
+            const uint8_t c = get(p);
+            if (c <= 3) rwv |= (uint32_t)c << (2 * b16);
+            else nmv |= 1u << (2 * b16);
+          }
+        }
+        rw[lane * RW + w] = rwv;
+        nmask[lane * RW + w] = nmv;
+      }
+      lens_md[lane] = (uint32_t)L | ((uint32_t)md[j] << 16);
+      // per-segment anchors
+      for (int32_t s = 0; s < n_seg; ++s) {
+        const int64_t r = (int64_t)s * B2 + lane;
+        const int64_t a = (int64_t)L * s / n_seg;
+        const int64_t b = (int64_t)L * (s + 1) / n_seg;
+        const int64_t w = b - a;
+        for (int64_t t = 0; t < SL; ++t) segbytes[t] = 5;  // PAD
+        int64_t slen = 0, soff = a;
+        uint32_t kmer = 0, ok = 0, sshort = 0;
+        if (K > 0) {
+          if (w >= K) {
+            ok = 1;
+            for (int32_t t = 0; t < K; ++t) {
+              const uint8_t c = get(b - 1 - t);
+              if (c > 3) { ok = 0; break; }
+              kmer += (uint32_t)c * pow4[K - 1 - t];
+            }
+          }
+          sshort = (w > 0 && w < K) ? 1u : 0u;
+          if (ok) {
+            const int64_t A = w < (int64_t)(K + tail) ? w : (int64_t)(K + tail);
+            slen = A - K;
+            soff = b - A;
+            const int64_t nt = slen < SL ? slen : SL;
+            for (int64_t t = 0; t < nt; ++t) segbytes[t] = get(b - 1 - K - t);
+          } else {
+            kmer = 0;
+          }
+        } else {
+          const int64_t nt = (w < SL ? w : SL);
+          for (int64_t t = 0; t < nt; ++t) segbytes[t] = get(b - 1 - t);
+          slen = w > 0 ? w : 0;
+        }
+        for (int64_t t4 = 0; t4 < S4; ++t4) {
+          uint32_t v = 0;
+          for (int q = 0; q < 4; ++q) {
+            const int64_t t = t4 * 4 + q;
+            if (t < SL) v |= (uint32_t)segbytes[t] << (8 * q);
+          }
+          segs4[r * S4 + t4] = v;
+        }
+        soff_len[r] = (uint32_t)soff | ((uint32_t)slen << 16);
+        kmer_fl[r] = kmer | (ok << 24) | (sshort << 25);
+      }
+    }
+  };
+
+  const int nthreads = B2 > 4096 ? 8 : 1;
+  if (nthreads == 1) {
+    work(0, B2);
+  } else {
+    std::vector<std::thread> ts;
+    const int64_t step = (B2 + nthreads - 1) / nthreads;
+    for (int i = 0; i < nthreads; ++i) {
+      const int64_t lo = i * step;
+      const int64_t hi = lo + step < B2 ? lo + step : B2;
+      if (lo < hi) ts.emplace_back(work, lo, hi);
+    }
+    for (auto& t : ts) t.join();
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
 // Banded global DP (hsa_tpu.resolve.cigar.banded_global, scalar port).
 //
 // Exact mirror of the numpy reference — same BIG sentinel, band clipping,

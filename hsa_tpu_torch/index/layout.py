@@ -204,8 +204,8 @@ class TorchIndex:
     device: torch.device
 
 
-def _words(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """uint32 rows -> int32 bit-pattern tensor on ``dev``."""
+def words_to_device(a: np.ndarray, dev) -> torch.Tensor:
+    """uint32 words -> int32 bit-pattern tensor on ``dev`` (one copy)."""
     a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
     return torch.from_numpy(a).to(dev)
 
@@ -224,10 +224,10 @@ def to_device(di: DeviceIndex, device) -> TorchIndex:
     return TorchIndex(
         n=int(di.n), primary=int(di.primary), sa_intv=int(di.sa_intv),
         C=_wide(di.C, dev),
-        occ_blocks=_words(di.occ_blocks, dev),
+        occ_blocks=words_to_device(di.occ_blocks, dev),
         samples=_wide(di.samples, dev),
         rev_primary=int(di.rev_primary) & 0xFFFFFFFF,
-        rev_occ_blocks=(_words(di.rev_occ_blocks, dev)
+        rev_occ_blocks=(words_to_device(di.rev_occ_blocks, dev)
                         if di.rev_occ_blocks is not None else None),
         sa_direct=(_wide(di.sa_direct, dev)
                    if di.sa_direct is not None else None),

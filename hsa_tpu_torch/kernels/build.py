@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
-from collections import deque
+from collections import Counter
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -48,9 +48,10 @@ class CudaKernel:
         self._lib = None
         self._lock = threading.Lock()
         self.launches = 0
-        # what count_launch was given for the latest launches; read only by
-        # chip_smoke.py, to time a kernel at the shapes the main path gave it
-        self.launch_shapes = deque(maxlen=256)
+        # launches by what count_launch was given (the launch's shape); read
+        # only by chip_smoke.py, to time a kernel at the shapes the main
+        # paths gave it
+        self.launch_shapes = Counter()
         self.build_log = ""
         self.build_s = None              # seconds spent in nvcc, None if cached
 
@@ -64,7 +65,7 @@ class CudaKernel:
         with self._lock:
             self.launches += 1
             if shape is not None:
-                self.launch_shapes.append(shape)
+                self.launch_shapes[shape] += 1
 
     def _build(self):
         with open(self.source, "rb") as fh:

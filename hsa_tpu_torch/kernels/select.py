@@ -122,7 +122,7 @@ def _select_topk_cuda(key, payloads, K, window, drop_accum):
     if err:
         raise RuntimeError(f"select_topk kernel launch failed: CUDA error {err} "
                            f"at C={C} B={B} K={K}")
-    KERNEL.count_launch()
+    KERNEL.count_launch((C, B, K, window is not None))
     return okeyd, pouts, okeyd[K:K + 1]
 
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``hsa_tpu/refpack/__init__.py``.  The sources are the port's
 own copies, ``csrc/refpack.cpp`` and ``csrc/sais.hpp`` (SA-IS index build,
-2-bit packing, the banded and glocal DPs, the FASTQ batcher; the pigeon
-batch packer comes with the pigeon engine).  :func:`ensure_refpack` builds
+2-bit packing, the banded and glocal DPs, the FASTQ batcher, the pigeon
+batch packer).  :func:`ensure_refpack` builds
 ``librefpack.so`` from them at first use into ``hsa_tpu_torch/_build/``
 (listed in ``.gitignore``) and loads it from there.  Beside it lies
 ``librefpack.so.sha256``, a digest of the sources, the compiler flags and
@@ -106,6 +106,11 @@ def _declare(lib):
                                    ctypes.c_int32, ctypes.c_int32,
                                    u8p, i32p, i64p, i32p, i64p, i32p]
     lib.rp_fastq_batch.restype = ctypes.c_int
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.rp_pigeon_pack.argtypes = [u8p, i32p, i32p, ctypes.c_int64,
+                                   ctypes.c_int64, ctypes.c_int32,
+                                   ctypes.c_int32, ctypes.c_int32, u32p]
+    lib.rp_pigeon_pack.restype = ctypes.c_int
     lib.rp_glocal_batch.argtypes = [u8p, i64p, i32p, u8p, i64p, i32p,
                                     ctypes.c_int32, ctypes.c_int32,
                                     ctypes.c_int32, ctypes.c_int32,
@@ -192,6 +197,45 @@ def pack_2bit(codes: np.ndarray) -> np.ndarray:
     out = np.empty((len(t) + 3) // 4, dtype=np.uint8)
     ensure_refpack().rp_pack_2bit(_u8(t), len(t), _u8(out))
     return out
+
+
+def pigeon_upload_shape(B: int, Lmax: int, n_seg: int, K: int, tail: int):
+    """(buffer_words, (R, SL, B2, RW)) of the fused pigeon upload layout."""
+    B2 = 2 * B
+    seg_max = (Lmax + n_seg - 1) // n_seg + 1
+    SL = max(min(seg_max - K, tail) if K else seg_max, 1)
+    RW = (Lmax + 15) // 16 + 1
+    S4 = (SL + 3) // 4
+    R = n_seg * B2
+    return R * S4 + 2 * R + 2 * B2 * RW + B2, (R, SL, B2, RW)
+
+
+def pigeon_pack(codes: np.ndarray, lens: np.ndarray, md: np.ndarray,
+                n_seg: int, K: int, tail: int):
+    """Native both-strand pigeon batch pack -> (uint32 buffer, shape).
+
+    ``codes`` uint8 [B, Lmax] forward-strand reads; the reverse-complement
+    lanes [B, 2B) are generated in C.  Bit-identical to
+    ``pack_pigeon_batch(device_masks=True)`` + ``pack_pigeon_upload``
+    (tested).
+    """
+    lib = ensure_refpack()
+    c = np.ascontiguousarray(codes, np.uint8)
+    ln = np.ascontiguousarray(lens, np.int32)
+    mdv = np.ascontiguousarray(md, np.int32)
+    B, Lmax = c.shape
+    if ln.shape != (B,) or mdv.shape != (B,):
+        raise ValueError("pigeon_pack: lens and md must have one entry a read")
+    words, shape = pigeon_upload_shape(B, Lmax, n_seg, K, tail)
+    buf = np.empty(words, np.uint32)
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    u32 = ctypes.POINTER(ctypes.c_uint32)
+    rc = lib.rp_pigeon_pack(_u8(c), ln.ctypes.data_as(i32),
+                            mdv.ctypes.data_as(i32), B, Lmax, n_seg, K,
+                            tail, buf.ctypes.data_as(u32))
+    if rc != 0:
+        raise RuntimeError(f"rp_pigeon_pack failed: {rc}")
+    return buf, shape
 
 
 _OPS = ("M", "I", "D")

@@ -506,3 +506,157 @@ def test_manifest_helpers_and_lockstep(tmp_path):
         raise ValueError("reader failed")
     with pytest.raises(ValueError, match="reader failed"):
         list(tcli._prefetch(boom()))
+
+
+# -- the pigeon engine's host side ---------------------------------------------
+
+def test_pigeon_constants_and_small_helpers():
+    for name in ("PAD", "MAX_READ_LEN", "GC_SLOTS", "MAX_GAP_RUN", "_BIGNMM",
+                 "_BIGKEY", "_PAT"):
+        assert getattr(tpigeon, name) == getattr(jpigeon, name), name
+    assert tpigeon.PigeonResult._fields == jpigeon.PigeonResult._fields
+    for n in (100, 20_000, 1 << 24, 46_709_983, 3_100_000_000):
+        for K in (0, 6, 12):
+            assert tpigeon.auto_anchor_tail(n, K) == \
+                jpigeon.auto_anchor_tail(n, K)
+    for opt in (jconfig.AlnOpt(), jconfig.AlnOpt(max_gapo=0),
+                jconfig.AlnOpt(max_gape=1), jconfig.AlnOpt(max_gape=20)):
+        for n_seg in range(1, 12):
+            assert tpigeon.max_gap_run(opt, n_seg) == \
+                jpigeon.max_gap_run(opt, n_seg)
+    key = np.asarray([0x00000B10, 0x00001D23, 0xFFFFFFFF], np.uint32)
+    for w, g in zip(jpigeon.unpack_gap_key(key), tpigeon.unpack_gap_key(key)):
+        np.testing.assert_array_equal(w, g)
+    for n in (0, 1, 2, 3, 64, 65, 512, 513, 2048, 2049, 40_000):
+        assert tpipeline._beam_pad(n) == jpipeline._beam_pad(n)
+    for args in ((16, 100, 6, 12, 4), (7, 150, 3, 0, 6), (1, 31, 2, 6, 3)):
+        assert trefpack.pigeon_upload_shape(*args) == \
+            jrefpack.pigeon_upload_shape(*args)
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 1000])
+def test_pack_text_rows(n):
+    text = np.random.RandomState(n).randint(0, 4, n).astype(np.int8)
+    want, got = jpigeon.pack_text_rows(text), tpigeon.pack_text_rows(text)
+    assert want.dtype == got.dtype and want.shape == got.shape
+    np.testing.assert_array_equal(want, got)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_seg=3), dict(n_seg=6, kmer_k=6, anchor_tail=3),
+    dict(n_seg=3, seg_phase=True), dict(n_seg=4, kmer_k=6, anchor_tail=2,
+                                        seg_phase=True, device_masks=True),
+    dict(n_seg=5, max_len=160, seed_len=20)])
+def test_pack_pigeon_batch_and_upload(kw):
+    rs = np.random.RandomState(6)
+    reads = [rs.randint(0, 5 if j % 3 == 0 else 4,
+                        rs.randint(20, 150)).astype(np.int8)
+             for j in range(21)]
+    want = jpigeon.pack_pigeon_batch(reads, **kw)
+    got = tpigeon.pack_pigeon_batch(reads, **kw)
+    assert want.keys() == got.keys()
+    for k in want:
+        assert want[k].dtype == got[k].dtype, k
+        np.testing.assert_array_equal(want[k], got[k], err_msg=k)
+    # the prepacked (matrix, lens) form the pipeline passes
+    rb = tpipeline.ReadBatch.from_reads(reads)
+    mat = tpigeon.pack_pigeon_batch(rb.padded(), **kw)
+    for k in want:
+        np.testing.assert_array_equal(want[k], mat[k], err_msg=k)
+    md = rs.randint(0, 7, len(reads)).astype(np.int32)
+    (wb, ws), (gb, gs) = (jpigeon.pack_pigeon_upload(want, md),
+                          tpigeon.pack_pigeon_upload(got, md))
+    assert ws == gs and wb.dtype == gb.dtype
+    np.testing.assert_array_equal(wb, gb)
+
+
+def _pigeon_result(rs, B=12, CC=4, POOL=40, GPOOL=10, n_gate=6):
+    """A PigeonResult of host arrays with duplicate positions, both strands,
+    gapped classes and fallback lanes."""
+    B2 = 2 * B
+    cidx = rs.randint(0, B2 * CC, POOL).astype(np.int32)
+    cidx[-3:] = B2 * CC                               # dead entries
+    g_key = np.full((GPOOL, 4), 0xFFFFFFFF, np.uint32)
+    g_q = rs.randint(0, 50, (GPOOL, 4)).astype(np.uint32)
+    for i in range(n_gate):
+        for s in range(rs.randint(1, 4)):
+            nm, g = rs.randint(0, 3), rs.randint(1, 4)
+            g_key[i, s] = ((nm * 3 + 11 + 4 * (g - 1)) << 8) | (g << 4) | nm
+    g_read = np.where(np.arange(GPOOL) < n_gate,
+                      rs.randint(0, B2, GPOOL), B2).astype(np.int32)
+    return jpigeon.PigeonResult(
+        pos=rs.randint(0, 50, POOL).astype(np.uint32),
+        nmm=rs.randint(0, 3, POOL).astype(np.uint8),
+        valid=(rs.rand(POOL) < 0.7) & (cidx < B2 * CC), cidx=cidx,
+        fallback=rs.rand(B2) < 0.1,
+        n_cand=rs.randint(0, CC, B2).astype(np.int32),
+        g_q=g_q, g_key=g_key, g_read=g_read,
+        n_gate=np.asarray(n_gate, np.int32),
+        n_missed=(rs.rand(B2) < 0.3).astype(np.int32) * 5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pigeon_finalisers(seed):
+    opt = jconfig.AlnOpt()
+    res = _pigeon_result(np.random.RandomState(seed))
+    tres = tpigeon.PigeonResult(*res)
+    wo, wf, wm = jpigeon.pigeon_occ_arrays(res, 12, opt, 4)
+    go, gf, gm = tpigeon.pigeon_occ_arrays(tres, 12, opt, 4)
+    assert wo.keys() == go.keys() and wo["rid"].size > 0
+    for k in wo:
+        assert wo[k].dtype == go[k].dtype, k
+        np.testing.assert_array_equal(wo[k], go[k], err_msg=k)
+    np.testing.assert_array_equal(wf, gf)
+    np.testing.assert_array_equal(wm, gm)
+    wl = jpigeon.pigeon_occurrences(res, 12, opt, 4)
+    gl = tpigeon.pigeon_occurrences(tres, 12, opt, 4)
+    assert _astuples(wl[0]) == _astuples(gl[0])
+    np.testing.assert_array_equal(wl[1], gl[1])
+    np.testing.assert_array_equal(wl[2], gl[2])
+    assert _astuples(jpigeon.occ_arrays_to_lists(wo, 12)) == \
+        _astuples(tpigeon.occ_arrays_to_lists(go, 12)) == _astuples(gl[0])
+
+
+@pytest.mark.parametrize("n_gate", [0, 6])
+def test_fetch_result(n_gate):
+    """Tensors come back as the reference's dtypes; with no gapped lane the
+    pool-2 arrays are synthesized, ``g_read`` as 2B, as the reference's
+    fetch does."""
+    res = _pigeon_result(np.random.RandomState(3), n_gate=n_gate)
+    wide = {"pos", "g_q", "g_key"}
+    tres = tpigeon.PigeonResult(**{
+        k: torch.from_numpy(v.astype(np.int64) if k in wide else v.copy())
+        for k, v in res._asdict().items()})
+    want = jpigeon.fetch_result(jpigeon.PigeonResult(
+        *(jnp.asarray(x) for x in res)))
+    got = tpigeon.fetch_result(tres)
+    for k in res._fields:
+        w, g = np.asarray(getattr(want, k)), getattr(got, k)
+        assert w.dtype == g.dtype and w.shape == g.shape, k
+        np.testing.assert_array_equal(w, g, err_msg=k)
+    if n_gate == 0:
+        assert got.g_read.tolist() == [2 * 24] and got.g_key.shape == (1, 4)
+    # host arrays pass through
+    again = tpigeon.fetch_result(got)
+    assert all(a is b or np.array_equal(a, b) for a, b in zip(again, got))
+
+
+def test_occ_merge():
+    rs = np.random.RandomState(9)
+
+    def occ(n, nr):
+        rid = np.sort(rs.randint(0, nr, n)).astype(np.int64)
+        return dict(rid=rid, pos=rs.randint(0, 99, n).astype(np.int64),
+                    strand=rs.randint(0, 2, n).astype(np.int8),
+                    score=rs.randint(0, 30, n).astype(np.int32),
+                    nmm=rs.randint(0, 3, n).astype(np.int32),
+                    ngapo=rs.randint(0, 2, n).astype(np.int32),
+                    ngape=rs.randint(0, 3, n).astype(np.int32))
+    fmap = np.asarray([3, 7, 11], np.int64)
+    for a, b in ((occ(20, 12), occ(5, 3)), (occ(20, 12), occ(0, 3)),
+                 (occ(0, 12), occ(4, 3))):
+        want, got = jpipeline._occ_merge(a, b, fmap), \
+            tpipeline._occ_merge(a, b, fmap)
+        for k in want:
+            assert want[k].dtype == got[k].dtype, k
+            np.testing.assert_array_equal(want[k], got[k], err_msg=k)

@@ -1,4 +1,5 @@
-"""Port Aligner and CLI (beam route, CPU) vs hsa_tpu's: byte-equal SAM."""
+"""Port Aligner and CLI (CPU) vs hsa_tpu's: byte-equal SAM on the beam route,
+and the routes that are and are not ported."""
 
 import os
 import subprocess
@@ -106,8 +107,8 @@ def test_cli_matches_jax_cli(cli_corpus):
     assert r.returncode == 0, r.stderr[-2000:]
     out = str(cli_corpus / "port.sam")
     met = str(cli_corpus / "m.json")
-    args = ["align", ref, fq, "--batch", "8", "--device", "cpu", "-f", out,
-            "--metrics", met]
+    args = ["align", ref, fq, "--engine", "beam", "--batch", "8", "--device",
+            "cpu", "-f", out, "--metrics", met]
     assert tcli.main(args) == 0
     port = (cli_corpus / "port.sam").read_text()
     assert port == (cli_corpus / "jax.sam").read_text()
@@ -156,8 +157,19 @@ def test_port_never_imports_jax(tmp_path):
 
 @pytest.mark.parametrize("engine", ["auto", "pigeon"])
 def test_unported_engines_raise(corpus, engine):
+    """Single ends run on both engines now (the 70 bp reads are all
+    eligible); what still raises is the paired-end route, and an engine
+    that does not exist."""
+    prefix, reads, names, quals = corpus
+    al = TAligner(prefix, engine=engine, device="cpu")
+    got = al.align(reads, names, quals)
+    want = JAligner(prefix, engine=engine).align(reads, names, quals)
+    assert [r.to_sam() for r in got] == [r.to_sam() for r in want]
+    assert al.last_ineligible_frac == 0.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TAligner(corpus[0], engine=engine, device="cpu")
+        al.align_pe(reads[:2], reads[2:4])
+    with pytest.raises(ValueError, match="unknown engine"):
+        TAligner(prefix, engine="seed", device="cpu")
 
 
 def test_ladder_raises(corpus, cli_corpus):
@@ -167,9 +179,11 @@ def test_ladder_raises(corpus, cli_corpus):
         tcli.main(["align", str(cli_corpus / "ref.fa"),
                    str(cli_corpus / "reads.fq"), "--device", "cpu",
                    "--ladder", "8,64", "-f", str(cli_corpus / "l.sam")])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TAligner(corpus[0], ladder=(8, 64), engine="auto", device="cpu")
     with pytest.raises(SystemExit):
         tcli.main(["align", str(cli_corpus / "ref.fa"),
-                   str(cli_corpus / "reads.fq"), "--engine", "auto"])
+                   str(cli_corpus / "reads.fq"), "--engine", "seed"])
 
 
 def test_cuda_without_a_card_raises(corpus):

@@ -89,10 +89,21 @@ assert cli.main(["align", fa, os.path.join(tmp, "reads.fq"), "--engine",
 assert cli.main(["align-pe", fa, os.path.join(tmp, "r1.fq"),
                  os.path.join(tmp, "r2.fq"), "--device", "cpu", "--batch",
                  "16", "-f", os.path.join(tmp, "pe.sam")]) == 0
+# the default engine, auto: the pigeonhole engine, here seeded with 6-mers
+# (12 is for genomes of 2^24 bp and more) so that its table cache is written
+from hsa_tpu_torch.pipeline import Aligner
+Aligner._kmer_k = 6
+assert cli.main(["align", fa, os.path.join(tmp, "reads.fq"), "--device", "cpu",
+                 "--batch", "16", "-f", os.path.join(tmp, "auto.sam"),
+                 "--metrics", os.path.join(tmp, "auto.json")]) == 0
+assert sorted(os.listdir(fa + ".hsa")) == ["index.npz", "kmer6.npz",
+                                           "meta.json", "text.pac"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("hsa_tpu", "jax", "jaxlib"))
 assert not bad, bad
 assert snapshot(ref_dir) == before, "hsa_tpu/refpack was written to"
+assert not os.path.isdir("hsa_tpu") or not any(
+    f.startswith("kmer") for _, _, fs in os.walk("hsa_tpu") for f in fs)
 from hsa_tpu_torch import refpack
 build = os.path.join(os.getcwd(), "hsa_tpu_torch", "_build")
 assert refpack._lib._name == os.path.join(build, "librefpack.so")
@@ -109,7 +120,8 @@ def _fastq(path, prefix, reads):
 
 @pytest.mark.parametrize("tree", ["repo", "port_alone"])
 def test_cli_runs_without_the_jax_package(tmp_path, tree):
-    """``index``, ``align`` and ``align-pe`` in a fresh process: neither
+    """``index``, ``align`` (beam, then the default ``--engine auto``) and
+    ``align-pe`` in a fresh process: neither
     ``hsa_tpu`` nor ``jax`` is in ``sys.modules`` afterwards, the library
     loaded is the port's build, and ``hsa_tpu/refpack/`` is untouched.
     With ``port_alone`` the process runs in a directory that holds only a
@@ -153,4 +165,12 @@ def test_cli_runs_without_the_jax_package(tmp_path, tree):
           if not ln.startswith("@")]
     assert len(se) == 20 and len(pe) == 40
     assert sum(int(ln.split("\t")[1]) & 4 == 0 for ln in se) == 20
+    # the pigeon route places every read where the beam does
+    auto = [ln for ln in (tmp_path / "auto.sam").read_text().splitlines()
+            if not ln.startswith("@")]
+    assert [ln.split("\t")[:6] for ln in auto] == \
+        [ln.split("\t")[:6] for ln in se]
+    import json
+    met = json.load(open(tmp_path / "auto.json"))
+    assert met["config"]["engine"] == "auto" and met["reads_mapped"] == 20
     assert any("XT:Z:M" in ln for ln in pe)
