@@ -79,9 +79,30 @@ any result.
    and timed as in phase 5, at the ``(R, L, G)`` of the largest screen that
    phase 6 launched (all its shapes are printed), and select_topk's launch
    shapes on this path as in phase 4.
-8. Pigeon main path: the 12-mer seed table of phase 3's index, built on
-   the card and written beside the index (``kmer12.npz``), then loaded from
-   that file, each timed; then ``align --engine auto --device cuda`` at
+7a. Paired ends on the pigeon route: the 12-mer seed table of phase 3's
+   index, built on the card and written beside the index (``kmer12.npz``),
+   then loaded from that file, each timed; then ``align-pe --device cuda``
+   with no ``--engine`` (the CLI's default, ``auto``) on phase 6's pairs
+   with a pair of 200 bp ends after every 128th (256 pairs too long for the
+   pigeon engine: the router hands their ends to the beam, pooled by the
+   paired stream's flush), with both kernels' counts set to 0 just before.
+7b. Checks: per batch its fallback, trunc and retry fractions and its
+   rescue jobs; phase 7's gates over all pairs (the long ones count as
+   plain pairs); glocal_screen launched once per batch with rescue jobs and
+   more than 0 times, and held against plain at its largest launch shape;
+   select_topk launched more than 0 times, every recorded shape held
+   against plain; 512 pairs (rescued mates and long pairs among them)
+   through ``align-pe --engine auto`` on ``cuda`` and ``cpu``: byte-equal;
+   then the pigeon route's records against the beam's, pair by pair on one
+   batch of phase 6's pairs (the rule is ``pe_engine_compare``'s
+   docstring).
+7c. The beam ladder: ``align --engine beam --ladder 8,64 --device cuda`` on
+   the first batch of phase 3's reads (its mapped and placed fractions and
+   its launches: 2 x n_steps at each of the two rungs), then the first 256
+   reads on ``cuda`` and ``cpu``: byte-equal; select_topk held against
+   plain at every shape these runs launched.
+8. Pigeon main path: the seed table is phase 7a's (loaded from
+   ``kmer12.npz``); ``align --engine auto --device cuda`` at
    the CLI defaults over phase 3's reads with a 200 bp read after every
    64th (512 reads too long for the pigeon engine: the router hands them
    to the beam, pooled over the stream's batches), with the select
@@ -115,7 +136,12 @@ any result.
    time in torch ops, device busy time, idle share, the top kernels and
    select_topk's own, peak memory); ``align --device cuda`` twice more, warm, against the
    sequential sum; then the same per-batch phases and warm runs for
-   ``align-pe``, with the mate rescue timed apart; then the pigeon route:
+   ``align-pe --engine beam``, with the mate rescue timed apart; then the
+   paired pigeon route (``align-pe`` at its default engine): per batch
+   pack, upload + search, readback, host finalise, pairing + rescue + SAM
+   with the rescue's seconds and jobs, one batch's device search under
+   ``torch.profiler`` (launches, device busy, idle share, peak memory),
+   and two warm runs; then the single-end pigeon route:
    per batch pack, upload + search, readback, host finalise and resolve;
    one batch's device search under ``torch.profiler``, whole and split by
    the engine's stages (upload, K-mer seed + anchor scan, extension loops,
@@ -165,6 +191,10 @@ GLOCAL = dict(R=16_384, L=150, G=576)
 PE_PAIRS, PE_LEN, PE_ISIZE, PE_ISIZE_SD = 32_768, 150, 400, 30
 HEAVY_EVERY, HEAVY_SUBS = 8, 12
 PE_CROSS_CHECK = 512
+# the paired pigeon path: phase 6's pairs with a pair of ends too long for
+# the engine after every PE_LONG_EVERY-th
+PE_LONG_EVERY, PE_LONG_LEN = 128, 200
+LADDER = "8,64"
 PE_MAPPED_MIN, PE_PLACED_MIN, RESCUED_MIN = 0.99, 0.99, 0.95
 # the card's peaks for the bounds: device memory rate (H100 SXM data sheet)
 # and int32 lanes; the int32 rate is lanes x the maximum SM clock
@@ -516,14 +546,15 @@ def ensure_index(genome, seed, workdir):
     return prefix, secs
 
 
-def run_align(prefix, fq, out_dir, device, tag, engine="beam"):
-    """``hsa_tpu_torch.cli align --engine <engine>`` at the CLI defaults.
-    Returns (SAM lines, header included; metrics dict)."""
+def run_align(prefix, fq, out_dir, device, tag, engine="beam", extra=()):
+    """``hsa_tpu_torch.cli align --engine <engine>`` at the CLI defaults
+    (plus ``extra`` arguments).  Returns (SAM lines, header included;
+    metrics dict)."""
     from hsa_tpu_torch import cli
     sam = os.path.join(out_dir, f"{tag}.sam")
     met = os.path.join(out_dir, f"{tag}_metrics.json")
     if cli.main(["align", prefix, fq, "--engine", engine, "--device", device,
-                 "-f", sam, "--metrics", met]) != 0:
+                 "-f", sam, "--metrics", met, *extra]) != 0:
         fail(f"align --engine {engine} --device {device} failed")
     with open(sam) as fh:
         lines = fh.read().split("\n")
@@ -733,17 +764,17 @@ def glocal_phase(seed, int32_ops_s):
     return shapes
 
 
-def glocal_main_path_phase(seed, launched, int32_ops_s):
-    """The screen at the shape of the largest launch that ``align-pe`` made:
+def glocal_main_path_phase(seed, launched, int32_ops_s,
+                           path="align-pe --engine beam"):
+    """The screen at the shape of the largest launch that ``path`` made:
     rescue-like jobs at that (R, L, G), checked and timed like the smoke
     shape."""
     for R, L, G in launched:
-        print(f"glocal_screen launch on the paired-end path: R={R} L={L} "
-              f"G={G}")
+        print(f"glocal_screen launch on {path}: R={R} L={L} G={G}")
     R, L, G = max(launched)
     return glocal_compare(
         make_glocal_case(R, L, G, np.random.RandomState(seed + 4)),
-        "main path", int32_ops_s, native=True)
+        f"main path ({path})", int32_ops_s, native=True)
 
 
 # -- 6. paired-end main path --------------------------------------------------------
@@ -781,26 +812,31 @@ def write_pairs(workdir, tag, r1s, r2s):
     return fq1, fq2
 
 
-def run_align_pe(prefix, fq1, fq2, out_dir, device, tag):
-    """``hsa_tpu_torch.cli align-pe --engine beam`` at the CLI defaults.
+def run_align_pe(prefix, fq1, fq2, out_dir, device, tag, engine="beam"):
+    """``hsa_tpu_torch.cli align-pe --engine <engine>`` at the CLI defaults;
+    with ``engine=None`` no ``--engine`` is given (the CLI's own default).
     Returns (SAM lines, header included; metrics dict)."""
     from hsa_tpu_torch import cli
     sam = os.path.join(out_dir, f"{tag}.sam")
     met = os.path.join(out_dir, f"{tag}_metrics.json")
-    if cli.main(["align-pe", prefix, fq1, fq2, "--engine", "beam", "--device",
-                 device, "-f", sam, "--metrics", met]) != 0:
-        fail(f"align-pe --device {device} failed")
+    route = ["--engine", engine] if engine else []
+    if cli.main(["align-pe", prefix, fq1, fq2, *route, "--device", device,
+                 "-f", sam, "--metrics", met]) != 0:
+        fail(f"align-pe {' '.join(route)} --device {device} failed")
     with open(sam) as fh:
         lines = fh.read().split("\n")
     with open(met) as fh:
         return lines[:-1], json.load(fh)
 
 
-def check_pairs(records, origin):
+def check_pairs(records, origin, is_heavy=None):
     """(fraction of mapped ends and of mapped ends within 2 bp of their
     origin, among the pairs without the heavy mate; fraction of heavy
-    mates placed by rescue within 2 bp of their origin)."""
+    mates placed by rescue within 2 bp of their origin).  ``is_heavy``:
+    which pairs carry the heavy mate (every HEAVY_EVERY-th when None)."""
     n = len(origin)
+    if is_heavy is None:
+        is_heavy = np.arange(n) % HEAVY_EVERY == HEAVY_EVERY - 1
     if len(records) != 2 * n:
         fail(f"{len(records)} SAM records for {n} pairs")
     ends = mapped = placed = heavy = rescued = 0
@@ -811,7 +847,7 @@ def check_pairs(records, origin):
             if f[0] != f"q{j}" or not flag & first:
                 fail(f"SAM record {2 * j + e} is {f[0]} flag {flag}")
             near = not flag & 4 and abs(int(f[3]) - 1 - origin[j, e]) <= 2
-            if j % HEAVY_EVERY == HEAVY_EVERY - 1:
+            if is_heavy[j]:
                 if e == 1:
                     heavy += 1
                     rescued += near and "XT:Z:M" in f[11:]
@@ -822,22 +858,227 @@ def check_pairs(records, origin):
     return mapped / ends, placed / max(mapped, 1), rescued / heavy
 
 
-def pe_cross_check(prefix, r1s, r2s, workdir):
-    """The first PE_CROSS_CHECK pairs through ``align-pe`` on the card and
-    on the CPU (the plain path): the SAMs must be byte-equal, and hold a
-    rescued mate."""
-    fq1, fq2 = write_pairs(workdir, "pairs_cross_check", r1s[:PE_CROSS_CHECK],
+def pe_cross_check(prefix, r1s, r2s, workdir, engine="beam"):
+    """The first PE_CROSS_CHECK pairs through ``align-pe --engine <engine>``
+    on the card and on the CPU (the plain path): the SAMs must be
+    byte-equal, and hold a rescued mate.  Returns the card's lines."""
+    tag = f"pairs_cross_check_{engine}"
+    fq1, fq2 = write_pairs(workdir, tag, r1s[:PE_CROSS_CHECK],
                            r2s[:PE_CROSS_CHECK])
-    card, _ = run_align_pe(prefix, fq1, fq2, workdir, "cuda", "pe_cross_cuda")
-    cpu, _ = run_align_pe(prefix, fq1, fq2, workdir, "cpu", "pe_cross_cpu")
+    card, _ = run_align_pe(prefix, fq1, fq2, workdir, "cuda", f"{tag}_cuda",
+                           engine)
+    cpu, _ = run_align_pe(prefix, fq1, fq2, workdir, "cpu", f"{tag}_cpu",
+                          engine)
     if cpu != card:
         bad = next(j for j in range(max(len(cpu), len(card)))
                    if cpu[j:j + 1] != card[j:j + 1])
-        fail(f"align-pe on the CPU differs from the card at line {bad}:\n"
-             f"  card: {card[bad:bad + 1]}\n  cpu:  {cpu[bad:bad + 1]}")
+        fail(f"align-pe --engine {engine} on the CPU differs from the card "
+             f"at line {bad}:\n  card: {card[bad:bad + 1]}\n  cpu:  "
+             f"{cpu[bad:bad + 1]}")
     if not any("\tXT:Z:M" in line for line in card):
         fail("the cross-check's SAM holds no rescued mate")
-    return PE_CROSS_CHECK
+    return card
+
+
+# -- 7a-7c. paired ends on the pigeon route; the beam ladder -------------------------
+def make_long_pairs(genome, n, seed):
+    """``n`` pairs of PE_LONG_LEN bp ends from fragments as in
+    :func:`make_pairs`, 2 substitutions each: both ends too long for the
+    pigeon engine.  Returns (ends 1, ends 2, origins [n, 2])."""
+    rs = np.random.RandomState(seed + 7)
+    L = PE_LONG_LEN
+    r1s, r2s = [], []
+    origin = np.empty((n, 2), np.int64)
+    for j in range(n):
+        isize = int(np.clip(round(rs.normal(PE_ISIZE, PE_ISIZE_SD)), L + 1,
+                            2 * PE_ISIZE))
+        p = rs.randint(0, len(genome) - isize)
+        frag = genome[p:p + isize].copy()
+        q = rs.randint(0, isize, size=2)
+        frag[q] = (frag[q] + rs.randint(1, 4, size=2)) % 4
+        r1s.append(frag[:L])
+        r2s.append(revcomp(frag[-L:]))
+        origin[j] = (p, p + isize - L)
+    return r1s, r2s, origin
+
+
+def interleave_long_pairs(r1s, r2s, origin, l1s, l2s, long_origin):
+    """A long pair after every PE_LONG_EVERY pairs.  Returns (ends 1, ends
+    2, origins, heavy mask, src) with src[j] the index into ``r1s`` or -1
+    for a long pair."""
+    o1, o2, org, heavy, src = [], [], [], [], []
+    for j in range(len(r1s)):
+        o1.append(r1s[j])
+        o2.append(r2s[j])
+        org.append(origin[j])
+        heavy.append(j % HEAVY_EVERY == HEAVY_EVERY - 1)
+        src.append(j)
+        if j % PE_LONG_EVERY == PE_LONG_EVERY - 1:
+            i = j // PE_LONG_EVERY
+            o1.append(l1s[i])
+            o2.append(l2s[i])
+            org.append(long_origin[i])
+            heavy.append(False)
+            src.append(-1)
+    return (o1, o2, np.asarray(org, np.int64), np.asarray(heavy, bool),
+            np.asarray(src, np.int64))
+
+
+def _pair_explained(fp, fbm, lossy, origin):
+    """Why a covered pair's pigeon records (``fp``: the field lists of both
+    ends) may differ from the beam's (``fbm``), or None.  ``lossy``: the
+    beam dropped frontier states or hits for one of the pair's reads."""
+    if all(len(x) == len(y) and all(u.startswith(TIE_TAGS)
+                                    for u, v in zip(x, y) if u != v)
+           for x, y in zip(fp, fbm)):
+        return "tie"
+    if not lossy:
+        return None
+    why = "beam under-counted"
+    for p, b, org in zip(fp, fbm, origin):
+        p_un, b_un = int(p[1]) & 4, int(b[1]) & 4
+        if p_un:
+            if not b_un:
+                return None          # an end the beam has and the pigeon lost
+            continue
+        if abs(int(p[3]) - 1 - org) > 2:
+            return None
+        if b_un or ("XT:Z:M" in b[11:] and "XT:Z:M" not in p[11:]):
+            why = "beam lost an end"
+        elif (p[2], p[3], p[5]) != (b[2], b[3], b[5]):
+            if _sam_score(p) > _sam_score(b):
+                return None
+            if why != "beam lost an end":
+                why = "beam missed a better hit"
+    return why
+
+
+def pe_engine_compare(al_p, prefix, r1s, r2s, origin, beam_lines=None):
+    """The pigeon route's records against the beam's, pair by pair, on one
+    batch of phase 6's pairs, both through ``Aligner.align_pe``'s halves on
+    the card with phase 6's names, qualities and ordinals.
+
+    Rule (phase 9's, per pair): a pair is covered when the pigeon engine
+    neither fell back on nor truncated either end and the beam reported both
+    occurrence lists untruncated.  A covered pair's four SAM lines must be
+    byte-equal, but for the engines' documented differences
+    (docs/PARITY.md), which are counted: deviation 13 (the XM/XO/XG tags on
+    an exact score tie at one position); and, only where the beam dropped
+    frontier states or hits for one of the pair's reads, pigeon records that
+    are no worse: every end they place lies within 2 bp of where it was
+    taken from and no end the beam placed is lost, while the beam lost an
+    end (unmapped, or placed by the mate rescue where the pigeon search
+    found it), placed one elsewhere at no better a score, or reports the
+    same placements and CIGARs with other counts, MAPQ or flags.  Anything
+    else fails.  With ``beam_lines`` (phase 6's records) the beam's records
+    here must equal them."""
+    from collections import Counter
+    from hsa_tpu_torch.pipeline import Aligner
+    from hsa_tpu_torch.search import pigeon as pg
+    n = len(r1s)
+    names = [f"q{j}" for j in range(n)]
+    quals = ["I" * PE_LEN] * n
+    h = al_p._align_pe_device(r1s, r2s)
+    if h[0] != "pigeon" or len(h[4]) != 2 * n:
+        fail("phase 6's ends did not all route to the pigeon engine")
+    _, fb, missed = pg.pigeon_occ_arrays(h[5], 2 * n, al_p.opt, h[6])
+    sam_p = al_p._align_pe_finish(h, r1s, r2s, names, quals, quals,
+                                  emit="sam")[0]
+    al_b = Aligner(prefix, engine="beam", device="cuda")
+    hb = al_b._align_pe_device(r1s, r2s)
+    occ, trunc, c2x, _, _ = al_b._align_pe_occ(hb, list(r1s) + list(r2s))
+    ld, hd = (np.asarray(x, np.int64) for x in al_b.last_overflow)
+    sam_b = al_b._resolve_pe(r1s, r2s, names, quals, quals, occ, trunc, c2x,
+                             emit="sam")[0]
+    if beam_lines is not None and sam_b != beam_lines[:2 * n]:
+        fail("the beam's pair records through Aligner differ from phase 6's "
+             "SAM")
+    N = 2 * n                                  # reads; lanes: both strands
+    lossy = (ld[:N] + ld[N:] + hd[:N] + hd[N:]) > 0
+    ok = ~fb & (missed == 0) & ~np.asarray(trunc, bool)
+    covered, lossy = ok[:n] & ok[n:], lossy[:n] | lossy[n:]
+    equal = np.fromiter((sam_p[2 * j:2 * j + 2] == sam_b[2 * j:2 * j + 2]
+                         for j in range(n)), bool, n)
+    kinds, shown, other = Counter(), Counter(), []
+    for j in np.nonzero(covered & ~equal)[0]:
+        fp = [x.split("\t") for x in sam_p[2 * j:2 * j + 2]]
+        fbm = [x.split("\t") for x in sam_b[2 * j:2 * j + 2]]
+        why = _pair_explained(fp, fbm, bool(lossy[j]), origin[j])
+        if why is None:
+            other.append(j)
+            continue
+        kinds[why] += 1
+        if shown[why] < 1:
+            shown[why] += 1
+            print(f"  listed ({why}):\n    pigeon: {sam_p[2 * j]}\n            "
+                  f"{sam_p[2 * j + 1]}\n    beam:   {sam_b[2 * j]}\n"
+                  f"            {sam_b[2 * j + 1]}")
+    print(f"engine comparison on {n} pairs: {int(covered.sum())} covered "
+          f"(pigeon fell back on {int(fb.sum())} ends, truncated "
+          f"{int((missed > 0).sum())}; the beam truncated "
+          f"{int(np.sum(trunc))}), of them {int((covered & equal).sum())} "
+          f"byte-equal; the beam dropped states or hits on a read of "
+          f"{int(lossy.sum())} pairs, so {int((covered & ~lossy).sum())} "
+          f"covered pairs are held to byte-equality or a tie alone; listed "
+          f"differences {json.dumps(dict(kinds))} (docs/PARITY.md: deviation "
+          f"13; DFS -> beam); {len(other)} differ otherwise")
+    if other:
+        j = other[0]
+        fail(f"{len(other)} covered pairs differ between the engines in a way "
+             f"no documented difference explains, first q{j} (beam dropped "
+             f"states or hits: {bool(lossy[j])}, origin {origin[j]}):\n  "
+             f"pigeon: {sam_p[2 * j:2 * j + 2]}\n  beam:   "
+             f"{sam_b[2 * j:2 * j + 2]}")
+    if covered.sum() < 0.9 * n:
+        fail(f"the comparison covered only {int(covered.sum())} of {n} pairs")
+
+
+def ladder_phase(prefix, reads, origin, opt, workdir):
+    """``align --engine beam --ladder`` on one batch of phase 3's reads on
+    the card, then a prefix of it on the card and on the CPU (byte-equal).
+    Returns the select kernel's launches of the batch run."""
+    from hsa_tpu_torch.kernels import select
+    extra = ("--ladder", LADDER)
+    fq = os.path.join(workdir, "reads_ladder.fq")
+    write_fastq(fq, reads[:BATCH])
+    before = select.KERNEL.launches
+    lines, met = run_align(prefix, fq, workdir, "cuda", "smoke_ladder",
+                           extra=extra)
+    launches = select.KERNEL.launches - before
+    w = align_window(met)
+    mapped, placed = check_placement(
+        [l for l in lines if not l.startswith("@")], origin[:BATCH])
+    rungs = len(LADDER.split(","))
+    n_steps = READ_LEN + opt["max_gapo"] + opt["max_gape"]
+    want = 2 * n_steps * rungs
+    print(f"align --engine beam --ladder {LADDER}: {BATCH} reads in an align "
+          f"window of {w:.3f} s ({BATCH / w:.1f} reads/s); mapped fraction "
+          f"{mapped:.6f}, placed within 2 bp {placed:.6f} (min {PLACED_MIN}); "
+          f"overflow reads {met.get('beam_overflow_reads', 0)} (a rung takes "
+          f"an eighth of the batch: reads flagged beyond it keep the "
+          f"narrower rung's hits); select_topk launches {launches} (expected "
+          f"2 x {n_steps} steps x {rungs} rungs = {want})")
+    if placed < PLACED_MIN:
+        fail(f"ladder: placed fraction {placed} < {PLACED_MIN}")
+    if launches != want:
+        fail(f"ladder: select_topk launched {launches} times, expected {want}")
+    fq = os.path.join(workdir, "reads_ladder_cross_check.fq")
+    write_fastq(fq, reads[:CROSS_CHECK])
+    t0 = time.perf_counter()
+    card, _ = run_align(prefix, fq, workdir, "cuda", "ladder_cross_cuda",
+                        extra=extra)
+    cpu, _ = run_align(prefix, fq, workdir, "cpu", "ladder_cross_cpu",
+                       extra=extra)
+    if cpu != card:
+        bad = next(j for j in range(max(len(cpu), len(card)))
+                   if cpu[j:j + 1] != card[j:j + 1])
+        fail(f"align --ladder {LADDER} on the CPU differs from the card at "
+             f"line {bad}:\n  card: {card[bad:bad + 1]}\n  cpu:  "
+             f"{cpu[bad:bad + 1]}")
+    print(f"cross-check: align --engine beam --ladder {LADDER} on the first "
+          f"{CROSS_CHECK} reads gives byte-equal SAMs on cuda and cpu "
+          f"({time.perf_counter() - t0:.3f} s)")
+    return launches
 
 
 # -- 8-10. the pigeon engine: align --engine auto -------------------------------------
@@ -1291,7 +1532,7 @@ def profile_pe_phase(prefix, r1s, r2s, fq1, fq2, workdir):
         h = al._align_pe_device(r1, r2)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        occ, trunc, c2x = al._align_pe_occ(h)
+        occ, trunc, c2x, _, _ = al._align_pe_occ(h, list(r1) + list(r2))
         t.append(time.perf_counter())
         al._resolve_pe(r1, r2, None, None, None, occ, trunc, c2x,
                        read_offset=s, emit="sam")
@@ -1309,9 +1550,111 @@ def profile_pe_phase(prefix, r1s, r2s, fq1, fq2, workdir):
         _, met = run_align_pe(prefix, fq1, fq2, workdir, "cuda",
                               f"stream_pe{rep}")
         w = align_window(met)
-        print(f"warm align-pe --device cuda, run {rep}: {len(r1s)} pairs in "
+        print(f"warm align-pe --engine beam --device cuda, run {rep}: "
+              f"{len(r1s)} pairs in "
               f"an align window of {w:.3f} s ({len(r1s) / w:.1f} pairs/s), "
               f"sequential sum {seq:.6f} s")
+
+
+def profile_pe_pigeon_phase(prefix, r1s, r2s, fq1, fq2, workdir):
+    """The paired pigeon route on the warm card: each batch's stages one
+    after another with the device synchronised between them (pack; upload +
+    search of the 2B reads; readback; host finalise; pairing + rescue + SAM,
+    with the rescue timed apart and both kernels' launches counted); one
+    batch's device search under ``torch.profiler`` (kernel launches, device
+    busy, idle share, peak memory); then ``align-pe --device cuda`` at its
+    default engine twice more on phase 6's pairs, which are all eligible."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hsa_tpu_torch.kernels import select, sw
+    from hsa_tpu_torch.pipeline import Aligner, _pe_reads
+    from hsa_tpu_torch.search import pigeon as pg
+    al = Aligner(prefix, device="cuda")
+    if al.engine != "auto":
+        fail(f"Aligner() defaults to engine {al.engine!r}, not 'auto'")
+    rescue_s = []
+    rescue = al._rescue
+
+    def timed_rescue(*args):             # the rescue, drained and timed
+        t0 = time.perf_counter()
+        out = list(rescue(*args))
+        torch.cuda.synchronize()
+        rescue_s.append(time.perf_counter() - t0)
+        return iter(out)
+    al._rescue = timed_rescue
+    al.align_pe(r1s[:BATCH], r2s[:BATCH])         # warm: tables, text rows
+    seq = 0.0
+    for s in range(0, len(r1s), BATCH):
+        r1, r2 = r1s[s:s + BATCH], r2s[s:s + BATCH]
+        all_reads = _pe_reads(r1, r2)
+        n_seg, elig = al._pigeon_split(all_reads)
+        if len(elig) != len(all_reads):
+            fail("phase 6's ends are not all eligible for the pigeon engine")
+        rescue_s.clear()
+        k0 = (select.KERNEL.launches, sw.KERNEL.launches)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        buf, shape = al._pigeon_pack(all_reads, n_seg)
+        t.append(time.perf_counter())
+        res = al._pigeon_device(buf, shape, n_seg)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        host = pg.fetch_result(res)
+        t.append(time.perf_counter())
+        h = ("pigeon", len(r1), n_seg, elig, list(elig), host,
+             al._pigeon_caps("base")[1])
+        occ, trunc, c2x, _, _ = al._align_pe_occ(h, all_reads)
+        t.append(time.perf_counter())
+        al._resolve_pe(r1, r2, None, None, None, occ, trunc, c2x,
+                       read_offset=s, emit="sam")
+        t.append(time.perf_counter())
+        d = np.diff(t)
+        seq += t[-1] - t[0]
+        print(f"sequential pigeon pair batch at {s}: pack {d[0]:.6f} s, "
+              f"upload + search {d[1]:.6f} s, readback {d[2]:.6f} s, host "
+              f"finalise {d[3]:.6f} s, pairing + rescue + SAM {d[4]:.6f} s "
+              f"(rescue of {al.last_rescue_jobs} jobs {sum(rescue_s):.6f} s), "
+              f"sum {t[-1] - t[0]:.6f} s; launches: select_topk "
+              f"{select.KERNEL.launches - k0[0]}, glocal_screen "
+              f"{sw.KERNEL.launches - k0[1]}; fractions fallback "
+              f"{al.last_fallback_frac}, retry {al.last_retry_frac}, "
+              f"ineligible {al.last_ineligible_frac} (shape R, SL, B2, RW = "
+              f"{shape}, n_seg {n_seg}, upload {buf.nbytes / 1e6:.3f} MB)")
+    print(f"sequential paired pigeon: {len(r1s)} pairs in {seq:.6f} s "
+          f"({len(r1s) / seq:.1f} pairs/s)")
+
+    all_reads = _pe_reads(r1s[:BATCH], r2s[:BATCH])
+    n_seg, _ = al._pigeon_split(all_reads)
+    buf, shape = al._pigeon_pack(all_reads, n_seg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        al._pigeon_device(buf, shape, n_seg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        fail("the profiler recorded no device kernels")
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+    print(f"profiled paired pigeon search of {BATCH} pairs ({2 * BATCH} "
+          f"reads): wall {wall:.6f} s, {len(kern)} device kernels and "
+          f"copies, device busy {busy:.6f} s, idle share "
+          f"{1 - busy / wall:.6f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.6f} GB")
+    del al, prof, kern
+
+    for rep in range(2):
+        _, met = run_align_pe(prefix, fq1, fq2, workdir, "cuda",
+                              f"stream_pe_pigeon{rep}", None)
+        w = align_window(met)
+        print(f"warm align-pe --device cuda (engine "
+              f"{met['config']['engine']}), run {rep}: {len(r1s)} pairs in "
+              f"an align window of {w:.3f} s ({len(r1s) / w:.1f} pairs/s), "
+              f"sequential sum {seq:.6f} s; index load "
+              f"{met['t_index_load_s']} s")
 
 
 def profile_pigeon_phase(prefix, reads, fq, workdir):
@@ -1481,6 +1824,9 @@ def main():
           f" ({GENOME_BP} bp)")
     reads, origin = make_reads(genome, N_READS, a.seed)
     r1s, r2s, pe_origin = make_pairs(genome, PE_PAIRS, a.seed)
+    n_long_pairs = PE_PAIRS // PE_LONG_EVERY
+    pp_r1s, pp_r2s, pp_origin, pp_heavy, pp_src = interleave_long_pairs(
+        r1s, r2s, pe_origin, *make_long_pairs(genome, n_long_pairs, a.seed))
     n_long = N_READS // PIGEON_LONG_EVERY
     p_reads, p_origin, p_src = interleave_long(
         reads, origin, *make_long_reads(genome, n_long, a.seed))
@@ -1490,6 +1836,8 @@ def main():
     p_fq = os.path.join(workdir, f"reads_pigeon_{GENOME_BP}_s{a.seed}.fq")
     write_fastq(p_fq, p_reads)
     fq1, fq2 = write_pairs(workdir, f"pairs_{GENOME_BP}_s{a.seed}", r1s, r2s)
+    pp_fq1, pp_fq2 = write_pairs(
+        workdir, f"pairs_pigeon_{GENOME_BP}_s{a.seed}", pp_r1s, pp_r2s)
     print(f"genome + reads ready in {time.perf_counter() - t0:.3f} s")
     torch.cuda.synchronize()
     select.KERNEL.launches = 0
@@ -1588,9 +1936,10 @@ def main():
         fail(f"glocal_screen launched {pe_glocal} times, expected {want_g} "
              "(and more than 0)")
     t0 = time.perf_counter()
-    n = pe_cross_check(prefix, r1s, r2s, workdir)
-    print(f"cross-check: align-pe on {n} pairs gives byte-equal SAMs on "
-          f"cuda and cpu ({time.perf_counter() - t0:.3f} s)")
+    pe_cross_check(prefix, r1s, r2s, workdir)
+    print(f"cross-check: align-pe --engine beam on {PE_CROSS_CHECK} pairs "
+          f"gives byte-equal SAMs on cuda and cpu "
+          f"({time.perf_counter() - t0:.3f} s)")
     want_r = sorted(b["rescue_jobs"] for b in pe_batches if b["rescue_jobs"])
     if sorted(r for r, _, _ in pe_launched) != want_r:
         fail(f"glocal_screen was launched at {pe_launched}, the batches had "
@@ -1600,8 +1949,102 @@ def main():
         "align-pe --engine beam", pe_sel_launched, compared, a.seed,
         int32_ops_s)
 
-    phase("8. pigeon main path: align --engine auto --device cuda")
+    phase("7a. paired ends on the pigeon route: align-pe --device cuda at "
+          "the CLI's default engine (auto)")
     al_p = kmer_table_phase(prefix)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    select.KERNEL.launches = sw.KERNEL.launches = 0
+    sw.KERNEL.launch_shapes.clear()
+    select.KERNEL.launch_shapes.clear()
+    pp_lines, pp_met = run_align_pe(prefix, pp_fq1, pp_fq2, workdir, "cuda",
+                                    "smoke_pe_pigeon", None)
+    pp_select, pp_glocal = select.KERNEL.launches, sw.KERNEL.launches
+    pp_launched = sorted(sw.KERNEL.launch_shapes.elements())
+    pp_sel_launched = dict(select.KERNEL.launch_shapes)
+    pp_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    phase("7b. paired pigeon checks")
+    pp_batches = pp_met.get("batches", [])
+    for i, b in enumerate(pp_batches):
+        print(f"batch {i}: {b['n'] // 2} pairs, profile {b['profile']}, "
+              f"fallback {b['fallback']}, trunc {b['trunc']}, retry "
+              f"{b['retry']}, {b['rescue_jobs']} rescue jobs, yield waited "
+              f"for {b['wait_s']:.6f} s")
+    w = align_window(pp_met)
+    print(f"align-pe (engine {pp_met['config']['engine']}): {len(pp_r1s)} "
+          f"pairs ({n_long_pairs} of {PE_LONG_LEN} bp ends for the beam) in "
+          f"an align window of {w:.3f} s ({len(pp_r1s) / w:.1f} pairs/s, "
+          f"first run); index load, with the K-mer table's, "
+          f"{pp_met['t_index_load_s']} s; peak device memory {pp_peak:.6f} GB")
+    if pp_met["config"]["engine"] != "auto" or \
+            pp_met["config"]["batch"] != BATCH or \
+            len(pp_batches) != -(-len(pp_r1s) // BATCH):
+        fail(f"align-pe ran {len(pp_batches)} batches of "
+             f"{pp_met['config']['batch']} pairs with engine "
+             f"{pp_met['config']['engine']}")
+    pp_records = [l for l in pp_lines if not l.startswith("@")]
+    pp_mapped, pp_placed, pp_rescued = check_pairs(pp_records, pp_origin,
+                                                   pp_heavy)
+    long_mapped = sum(not int(pp_records[2 * j + e].split("\t", 2)[1]) & 4
+                      for j in np.nonzero(pp_src < 0)[0] for e in (0, 1))
+    print(f"plain pairs: mapped ends {pp_mapped:.6f} (min {PE_MAPPED_MIN}), "
+          f"placed within 2 bp {pp_placed:.6f} (min {PE_PLACED_MIN}); heavy "
+          f"mates rescued (XT:Z:M) at their origin {pp_rescued:.6f} (min "
+          f"{RESCUED_MIN}); long ends mapped {long_mapped} of "
+          f"{2 * n_long_pairs}; overflow reads "
+          f"{pp_met.get('beam_overflow_reads', 0)}")
+    long_steps = PE_LONG_LEN + pe_opt["max_gapo"] + pe_opt["max_gape"]
+    want_g = sum(b["rescue_jobs"] > 0 for b in pp_batches)
+    print(f"launches on the paired pigeon path: select_topk {pp_select} (2 x "
+          f"{long_steps} steps = {2 * long_steps} for each pooled beam run "
+          f"of the paired stream's flush); glocal_screen {pp_glocal} "
+          f"(expected one per batch with rescue jobs = {want_g})")
+    if pp_mapped < PE_MAPPED_MIN:
+        fail(f"paired pigeon: mapped end fraction {pp_mapped} < "
+             f"{PE_MAPPED_MIN}")
+    if pp_placed < PE_PLACED_MIN:
+        fail(f"paired pigeon: placed end fraction {pp_placed} < "
+             f"{PE_PLACED_MIN}")
+    if pp_rescued < RESCUED_MIN:
+        fail(f"paired pigeon: rescued heavy-mate fraction {pp_rescued} < "
+             f"{RESCUED_MIN}")
+    if pp_select == 0 or sum(pp_sel_launched.values()) != pp_select:
+        fail(f"select_topk was launched {pp_select} times on the paired "
+             f"pigeon path and recorded {sum(pp_sel_launched.values())} "
+             f"launch shapes")
+    if pp_glocal == 0 or pp_glocal != want_g:
+        fail(f"glocal_screen launched {pp_glocal} times on the paired pigeon "
+             f"path, expected {want_g} (and more than 0)")
+    want_r = sorted(b["rescue_jobs"] for b in pp_batches if b["rescue_jobs"])
+    if sorted(r for r, _, _ in pp_launched) != want_r:
+        fail(f"glocal_screen was launched at {pp_launched}, the batches had "
+             f"{want_r} rescue jobs")
+    glocal.append(glocal_main_path_phase(a.seed, pp_launched, int32_ops_s,
+                                         "align-pe --engine auto"))
+    by_path["align-pe --engine auto"] = select_path_phase(
+        "align-pe --engine auto", pp_sel_launched, compared, a.seed,
+        int32_ops_s)
+    t0 = time.perf_counter()
+    pe_cross_check(prefix, pp_r1s, pp_r2s, workdir, "auto")
+    print(f"cross-check: align-pe --engine auto on the first "
+          f"{PE_CROSS_CHECK} pairs ({int((pp_src[:PE_CROSS_CHECK] < 0).sum())} "
+          f"of them long) gives byte-equal SAMs on cuda and cpu "
+          f"({time.perf_counter() - t0:.3f} s)")
+    n_hdr = sum(l.startswith("@") for l in pe_lines)
+    t0 = time.perf_counter()
+    pe_engine_compare(al_p, prefix, r1s[:BATCH], r2s[:BATCH],
+                      pe_origin[:BATCH], pe_lines[n_hdr:])
+    print(f"engine comparison took {time.perf_counter() - t0:.3f} s")
+
+    phase(f"7c. the beam ladder: align --engine beam --ladder {LADDER}")
+    select.KERNEL.launch_shapes.clear()
+    ladder_select = ladder_phase(prefix, reads, origin, opt, workdir)
+    by_path[f"align --ladder {LADDER}"] = select_path_phase(
+        f"align --ladder {LADDER}", dict(select.KERNEL.launch_shapes),
+        compared, a.seed, int32_ops_s)
+
+    phase("8. pigeon main path: align --engine auto --device cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     select.KERNEL.launches = 0
@@ -1682,6 +2125,7 @@ def main():
         phase("11. where the time goes (warm card)")
         profile_phase(prefix, reads, opt, fq, workdir)
         profile_pe_phase(prefix, r1s, r2s, fq1, fq2, workdir)
+        profile_pe_pigeon_phase(prefix, r1s, r2s, fq1, fq2, workdir)
         profile_pigeon_phase(prefix, reads, fq, workdir)
 
     # per beam step: the frontier select and the hit merge, one launch each;
@@ -1694,8 +2138,11 @@ def main():
         "name": "select_topk", "route": "cuda",
         "source": "hsa_tpu_torch/csrc/select_topk.cu",
         "replaces": "hsa_tpu/kernels/select.py:51",
-        "launches": launches + pe_select + pg_select,
+        "launches": launches + pe_select + pp_select + ladder_select
+        + pg_select,
         "launches_by_path": {"align": launches, "align-pe": pe_select,
+                             "align-pe --engine auto": pp_select,
+                             f"align --ladder {LADDER}": ladder_select,
                              "align --engine auto": pg_select,
                              "repeat path (align_stream)": repeat_select},
         "launches_per_batch": {"align": launches // len(batches),
@@ -1717,9 +2164,12 @@ def main():
         "name": "glocal_screen", "route": "cuda",
         "source": "hsa_tpu_torch/csrc/glocal_screen.cu",
         "replaces": "hsa_tpu/kernels/sw.py:114",
-        "launches": pe_glocal,
-        "launches_by_path": {"align-pe": pe_glocal},
-        "launches_per_batch": {"align-pe": pe_glocal // len(pe_batches)},
+        "launches": pe_glocal + pp_glocal,
+        "launches_by_path": {"align-pe": pe_glocal,
+                             "align-pe --engine auto": pp_glocal},
+        "launches_per_batch": {"align-pe": pe_glocal // len(pe_batches),
+                               "align-pe --engine auto":
+                               pp_glocal // len(pp_batches)},
         "max_abs_err": max(g["max_abs_err"] for g in glocal),
         "ms": glocal[0]["ms"], "plain_ms": glocal[0]["plain_ms"],
         "bound_ms": glocal[0]["bound_ms"],

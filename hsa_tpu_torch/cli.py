@@ -3,10 +3,11 @@
 Subcommands: ``index`` (both packages read and write the same index
 directory), ``align`` (fused search + resolution -> SAM; ``--engine
 auto|pigeon|beam``, default ``auto``: the pigeonhole engine with the beam
-as its fallback) and ``align-pe`` (paired ends, with mate rescue; beam
-engine only so far).  Options, the ``--resume`` manifests and the
-``--metrics`` JSON are ``hsa-tpu align``'s and ``align-pe``'s; ``--device``
-picks the torch device.  ``sampe`` waits for ``aln`` and raises.
+as its fallback; ``--ladder 8,64`` makes that beam the adaptive one) and
+``align-pe`` (paired ends, with mate rescue; the same engines and default).
+Options, the ``--resume`` manifests and the ``--metrics`` JSON are ``hsa-tpu
+align``'s and ``align-pe``'s; ``--device`` picks the torch device.
+``sampe`` waits for ``aln`` and raises.
 
 Usage:
     python -m hsa_tpu_torch.cli index ref.fa [-p prefix] [-s sa_intv]
@@ -14,8 +15,8 @@ Usage:
         [--engine auto] [--device cuda] [--metrics m.json] [--resume]
         [search opts]
     python -m hsa_tpu_torch.cli align-pe prefix r1.fq r2.fq [-f out.sam]
-        [-a max_isize] [--device cuda] [--metrics m.json] [--resume]
-        [search opts]
+        [-a max_isize] [--engine auto] [--device cuda] [--metrics m.json]
+        [--resume] [search opts]
 """
 
 from __future__ import annotations
@@ -38,12 +39,11 @@ from .io.fastq_fast import FastqBatcher
 from .io.fastx import read_fasta, read_fastq, trim_read_length
 from .io.sam import sam_header
 from .metrics import RunMetrics
-from .pipeline import (ENGINES, PE_ENGINE_TODO, Aligner, ReadBatch,
-                       build_index)
+from .pipeline import ENGINES, Aligner, ReadBatch, build_index
 from .refpack import ensure_refpack
 
 SAMPE_TODO = ("sampe: the two-phase paired flow waits for `aln` (ROADMAP.md "
-              "Queue A items 3 and 4); use align-pe")
+              "Queue A item 4); use align-pe")
 
 
 def _add_search_opts(p):
@@ -360,15 +360,12 @@ def cmd_align_pe(argv):
     p.add_argument("--metrics", default=None, help="write run metrics JSON here")
     p.add_argument("--resume", action="store_true",
                    help="resume an interrupted run from its .manifest.json")
-    p.add_argument("--engine", default="beam", choices=ENGINES,
-                   help="search engine (only the beam is ported for "
-                        "paired ends so far)")
+    p.add_argument("--engine", default="auto", choices=ENGINES,
+                   help="search engine routing (default auto)")
     p.add_argument("--device", default="cuda",
                    help="torch device to search and rescue on (default cuda)")
     _add_search_opts(p)
     a = p.parse_args(argv)
-    if a.engine != "beam":
-        raise NotImplementedError(PE_ENGINE_TODO.format(a.engine))
     met = RunMetrics()
     opt = _opt_from_args(a)
     met.config = dict(cmd="align-pe", reads1=a.reads1, reads2=a.reads2,
@@ -378,6 +375,7 @@ def cmd_align_pe(argv):
     with met.timer("index_load"):
         al = Aligner(a.prefix, opt, ladder=ladder, engine=a.engine,
                      device=a.device)
+        al.warm_pigeon()       # K-mer tables: built once, loaded after
     args_key = f"align-pe|{a.reads1}|{a.reads2}|{a.batch}|{a.beam_width}|{a.n}"
     done = _load_manifest(a.out, args_key) if a.resume else 0
     mode = "a" if (a.resume and done) else "w"

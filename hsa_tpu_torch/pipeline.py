@@ -8,16 +8,15 @@ it, the rest and the engine's fallbacks run on the exhaustive beam
 (both-strand width pass and beam search, hits located on the device), and
 the two occurrence sources merge into one resolution pass;
 ``engine="beam"`` forces the beam, ``"pigeon"`` the fast path.  Paired ends
-search both ends as one beam batch and resolve through the paired resolver,
-whose mate rescue screens on the device
-(:mod:`hsa_tpu_torch.resolve.sampe`).  The index directory format is
+route the same way over both ends as one batch of 2B reads (end 1 then
+end 2) and resolve through the paired resolver, whose mate rescue screens
+on the device (:mod:`hsa_tpu_torch.resolve.sampe`); their stream pools the
+alternate-partition retries and the beam fallbacks across batches.  With
+``ladder`` the beam is the adaptive one of
+:mod:`hsa_tpu_torch.search.adaptive`.  The index directory format is
 ``hsa_tpu``'s, the K-mer seed table cache (``kmer{K}.npz``) included; the
 host layer (``ReadBatch``, ``build_index``, the resolvers) is the port's own
 copy of it, and nothing of ``hsa_tpu`` is imported.
-
-Not ported yet, and raising :class:`NotImplementedError` rather than
-silently running something else: the pigeon branch of paired ends
-(``align_pe`` with ``engine="auto"``/``"pigeon"``) and the beam ladder.
 """
 
 from __future__ import annotations
@@ -42,14 +41,10 @@ from .resolve.samse import collect_occurrences, resolve_from_occ_arrays
 from .search import fm
 from .search import pigeon as pg
 from .search.adaptive import finalize_any
-from .search.beam import (LADDER_TODO, pack_read_batch, result_to_hits,
-                          search_device)
+from .search.beam import pack_read_batch, result_to_hits, search_device
 from .search.exact import as_wide, kmer_table
 from .search.pigeon import occ_lists_to_arrays
 
-PE_ENGINE_TODO = ("engine={!r}: the pigeon branch of paired ends is not "
-                  "ported yet (ROADMAP.md Queue A); use engine='beam' for "
-                  "align-pe")
 ENGINES = ("auto", "pigeon", "beam")
 
 # batches in flight on worker threads ahead of the one being resolved
@@ -168,11 +163,23 @@ def _save_kmer_tables(path, tk, tl):
             pass
 
 
-def _check_route(engine, ladder):
+def _check_engine(engine):
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if ladder:
-        raise NotImplementedError(LADDER_TODO)
+
+
+def _pe_reads(reads1, reads2):
+    """Both ends as one batch of 2B reads, end 1 then end 2, in a matrix as
+    wide as the longest read."""
+    if isinstance(reads1, ReadBatch) and isinstance(reads2, ReadBatch):
+        lens = np.concatenate([reads1.lens, reads2.lens])
+        W = max(int(lens.max()) if len(lens) else 1, 1)
+        mat = np.full((len(lens), W), 5, np.uint8)
+        for rb, at in ((reads1, 0), (reads2, len(reads1))):
+            w = min(rb.mat.shape[1], W)
+            mat[at:at + len(rb), :w] = rb.mat[:, :w]
+        return ReadBatch(mat, lens)
+    return ReadBatch.from_reads(list(reads1) + list(reads2))
 
 
 class Aligner:
@@ -181,14 +188,14 @@ class Aligner:
     ``engine``: "auto" routes eligible reads (short reads, modest diff
     budgets) through the pigeonhole seed-and-verify engine with the beam
     as exact fallback; "beam" forces the exhaustive beam; "pigeon" forces
-    the pigeon path (ineligible batches raise).  The default stays "beam"
-    until the paired-end pigeon branch is ported (``align_pe`` raises for
-    the other two); the command line's ``align`` defaults to "auto".
+    the pigeon path (ineligible batches raise).  ``ladder``: the widths of
+    the adaptive beam (see :mod:`hsa_tpu_torch.search.adaptive`); fallback
+    reads go straight to its widest rung.
     """
 
     def __init__(self, index_dir: str, opt: AlnOpt | None = None,
-                 ladder=None, engine: str = "beam", device="cuda"):
-        _check_route(engine, ladder)
+                 ladder=None, engine: str = "auto", device="cuda"):
+        _check_engine(engine)
         refpack.ensure_refpack()
         if not os.path.isdir(index_dir) and os.path.isdir(index_dir + ".hsa"):
             index_dir = index_dir + ".hsa"
@@ -209,13 +216,13 @@ class Aligner:
     @classmethod
     def from_arrays(cls, di, text, meta: RefMeta | None = None,
                     opt: AlnOpt | None = None, ladder=None,
-                    engine: str = "beam", device="cuda",
+                    engine: str = "auto", device="cuda",
                     index_dir: str | None = None):
         """Construct from in-memory arrays: DeviceIndex + int8 text (+
         optional RefMeta; a single-sequence meta is synthesized when
         omitted).  ``index_dir`` (optional) enables the on-disk K-mer
         table cache."""
-        _check_route(engine, ladder)
+        _check_engine(engine)
         refpack.ensure_refpack()
         self = cls.__new__(cls)
         self.index_dir = index_dir
@@ -703,17 +710,21 @@ class Aligner:
     _FB_MAX_OCC = 256
 
     def _beam_rerun(self, bsub, beam_width=None, max_hits=32):
-        """Beam over a fallback read list (padded per :func:`_beam_pad`).
+        """Widest-rung beam over a fallback read list (padded per
+        :func:`_beam_pad`).
 
-        The reference goes straight to the widest rung of the beam
-        ladder here; without the ladder (not ported) that is the plain
-        beam.  Returns (occs, trunc, low_drops, high_drops) trimmed to
-        ``len(bsub)``.
+        Fallback reads are here BECAUSE the screen found them hard
+        (repeat-dense or structural): the narrow ladder rungs almost
+        always escalate, so go straight to the widest rung (without a
+        ladder, the plain beam).  Returns (occs, trunc, low_drops,
+        high_drops) trimmed to ``len(bsub)``.
         """
         n = len(bsub)
         bsub = list(bsub) + [bsub[0]] * (_beam_pad(n) - n)
         hf, hr = self.search_batch(bsub, beam_width=beam_width,
-                                   max_hits=max_hits)
+                                   max_hits=max_hits,
+                                   ladder=self.ladder[-1:] if self.ladder
+                                   else None)
         sub_occs, sub_trunc = collect_occurrences(hf, hr, self.locate_fn,
                                                   self._FB_MAX_OCC)
         sld, shd = self.last_overflow
@@ -929,41 +940,136 @@ class Aligner:
     def align_pe(self, reads1, reads2, names=None, quals1=None, quals2=None, *,
                  read_offset: int = 0, beam_width=None, max_hits=32,
                  peopt: PEOpt | None = None, emit: str = "records"):
-        """Paired ends -> interleaved [rec1, rec2, ...] records, or
-        (lines, flags) with ``emit="sam"``; ``hsa_tpu``'s ``align_pe`` on
-        the beam route."""
+        """Paired ends -> interleaved [rec1, rec2, ...] records.
+
+        Routes through the pigeon engine when eligible, exactly like
+        :meth:`align`; fallback ends re-run on the beam.  ``emit="sam"``
+        returns (lines, flags) formatted directly.
+        """
         h = self._align_pe_device(reads1, reads2, beam_width=beam_width,
                                   max_hits=max_hits)
         return self._align_pe_finish(h, reads1, reads2, names, quals1, quals2,
-                                     read_offset=read_offset, peopt=peopt,
-                                     emit=emit)
+                                     read_offset=read_offset,
+                                     beam_width=beam_width, max_hits=max_hits,
+                                     peopt=peopt, emit=emit)
 
     def _align_pe_device(self, reads1, reads2, *, beam_width=None,
                          max_hits=32):
-        """Phase A of the paired flow: both ends, end 1 then end 2, in one
-        both-strand beam search of 2B reads."""
-        if self.engine != "beam":
-            raise NotImplementedError(PE_ENGINE_TODO.format(self.engine))
-        return ("beam", len(reads1), self.search_batch_device(
-            list(reads1) + list(reads2), beam_width=beam_width,
-            max_hits=max_hits))
+        """Phase A of the paired flow: both ends' pigeon search (or, where
+        the router finds no eligible read, one both-strand beam search of
+        the 2B reads)."""
+        return self._pe_search(_pe_reads(reads1, reads2),
+                               beam_width=beam_width, max_hits=max_hits)
 
-    def _align_pe_occ(self, handle, peopt: PEOpt | None = None):
-        """Handle -> (occ dict in the [0, 2B) read space, trunc[2B],
-        c2x[2B]), the beam branch of ``hsa_tpu``'s ``_align_pe_occ``."""
-        B = handle[1]
-        cap = min((peopt or PEOpt()).max_occ, 256)
-        hf, hr = self.hits_from_device(handle[2])
-        occs, trunc = collect_occurrences(hf, hr, self.locate_fn, cap)
-        return (occ_lists_to_arrays(occs), np.asarray(trunc, bool),
-                np.zeros(2 * B, np.int64))
+    def _pe_search(self, all_reads, *, beam_width=None, max_hits=32):
+        """:meth:`_align_pe_device` over the 2B reads of :func:`_pe_reads`.
+        The handle's layout is the reference's."""
+        B = len(all_reads) // 2
+        n_seg, elig = self._pigeon_split(all_reads)
+        if n_seg is None:
+            return ("beam", B, self.search_batch_device(
+                all_reads, beam_width=beam_width, max_hits=max_hits))
+        psub = list(elig)
+        # the packed-word count follows the matrix width: cut the eligible
+        # subset's matrix to its own longest read
+        sub = all_reads if len(psub) == len(all_reads) else \
+            all_reads.subset(psub)
+        sub = ReadBatch(sub.mat[:, :max(int(sub.lens.max()), 1)], sub.lens)
+        prof = self._pigeon_profile
+        res = self._pigeon_raw(sub, n_seg, prof)
+        return ("pigeon", B, n_seg, elig, psub, res,
+                self._pigeon_caps(prof)[1])
+
+    def _align_pe_occ(self, handle, all_reads, *, beam_width=None,
+                      max_hits=32, defer: bool = False,
+                      peopt: PEOpt | None = None):
+        """PE search-phase finalization: handle -> (occ dict in [0, 2B)
+        read space, trunc[2B], c2x[2B], fb_ids, retry_list).
+
+        With ``defer=False`` the seg_phase retry and the widest-rung
+        beam run in-batch and fb_ids/retry_list come back empty; with
+        ``defer=True`` both escalations are left to the caller
+        (``align_pe_stream`` pools them across batches exactly like the
+        single-end stream: a per-batch escalation is a device call
+        queued behind the prefetched searches).
+
+        ``last_overflow`` is the batch's: on the beam route the search's
+        own counters (both strands of the 2B reads), on the pigeon route
+        [2B] counters that are zero except for the ends that the beam
+        re-ran (there the larger of the two strands' drops).
+        """
+        all_reads = ReadBatch.from_reads(all_reads)
+        B = len(all_reads) // 2
+        if handle[0] == "beam":
+            cap = min((peopt or PEOpt()).max_occ, 256)
+            hf, hr = self.hits_from_device(handle[2])
+            occs_all, trunc_all = collect_occurrences(hf, hr,
+                                                      self.locate_fn, cap)
+            self.last_fallback_frac = 0.0
+            self.last_ineligible_frac = 1.0
+            self.last_retry_frac = 0.0
+            return (occ_lists_to_arrays(occs_all),
+                    np.asarray(trunc_all, bool),
+                    np.zeros(2 * B, np.int64), [], [])
+        _, _, n_seg, elig, psub, res, pe_cc = handle
+        trunc = np.zeros(2 * B, bool)
+        c2x = np.zeros(2 * B, np.int64)
+        retry_list = []
+        occ, fb, missed = pg.pigeon_occ_arrays(res, len(psub), self.opt,
+                                               pe_cc)
+        has_occ = np.zeros(len(psub), bool)
+        if occ["rid"].size:
+            has_occ[np.unique(occ["rid"])] = True
+        psub_arr = np.asarray(psub, np.int64)
+        if defer and self._PIGEON_RETRY:
+            retry_cand = (missed > 0) & ~has_occ & ~fb
+            self.last_retry_frac = (float(retry_cand.mean())
+                                    if len(retry_cand) else 0.0)
+            ridx = np.nonzero(retry_cand)[0]
+            retry_list = list(zip(psub_arr[ridx].tolist(),
+                                  missed[ridx].tolist()))
+            missed = missed.copy()
+            missed[ridx] = 0
+        else:
+            sub = (all_reads if len(psub) == len(all_reads)
+                   else all_reads.subset(psub))
+            occ, fb, missed, has_occ, self.last_retry_frac = \
+                self._retry_merge(sub, occ, fb, missed, has_occ, n_seg)
+        fb = fb | ((missed > 0) & ~has_occ)
+        occ["rid"] = psub_arr[occ["rid"]]
+        keep_trunc = (missed > 0) & ~fb & has_occ
+        trunc[psub_arr[keep_trunc]] = True
+        c2x[psub_arr[keep_trunc]] = missed[keep_trunc]
+        fb_set = set(psub_arr[fb].tolist())
+        fb_ids = sorted(fb_set | (set(range(2 * B)) - set(elig)))
+        self.last_fallback_frac = (float(fb.mean()) if len(fb) else 0.0)
+        self.last_ineligible_frac = (2 * B - len(elig)) / (2 * B)
+        self._profile_update(self.last_fallback_frac + float(trunc.mean())
+                             + self.last_retry_frac)
+        ld = np.zeros(2 * B, np.int32)
+        hd = np.zeros(2 * B, np.int32)
+        self.last_overflow = (ld, hd)
+        if defer:
+            return occ, trunc, c2x, fb_ids, retry_list
+        if fb_ids:
+            sub_occs, sub_trunc, sld, shd = self._beam_rerun(
+                [all_reads[j] for j in fb_ids], beam_width, max_hits)
+            occ = _occ_merge(occ, occ_lists_to_arrays(sub_occs),
+                             np.asarray(fb_ids, np.int64))
+            trunc[fb_ids] = np.asarray(sub_trunc, bool)
+            ld[fb_ids], hd[fb_ids] = sld, shd
+            self.last_overflow = (ld, hd)
+        return occ, trunc, c2x, [], []
 
     def _align_pe_finish(self, handle, reads1, reads2, names=None,
                          quals1=None, quals2=None, *, read_offset: int = 0,
+                         beam_width=None, max_hits=32,
                          peopt: PEOpt | None = None, emit: str = "records"):
-        """Phase B of the paired flow: readback, locate, pairing and mate
-        rescue (on this aligner's device), records."""
-        occ, trunc, c2x = self._align_pe_occ(handle, peopt)
+        """Phase B of the paired flow: finalize + fallback + pairing and
+        mate rescue (on this aligner's device) -> records."""
+        occ, trunc, c2x, _fb, _rt = self._align_pe_occ(
+            handle, _pe_reads(reads1, reads2), beam_width=beam_width,
+            max_hits=max_hits, peopt=peopt)
         return self._resolve_pe(reads1, reads2, names, quals1, quals2, occ,
                                 trunc, c2x, read_offset=read_offset,
                                 peopt=peopt, emit=emit)
@@ -987,22 +1093,132 @@ class Aligner:
         return _rescue_batch(text, meta, jobs, rlim, opt, self.device)
 
     def align_pe_stream(self, batches, *, beam_width=None, max_hits=32,
-                        peopt: PEOpt | None = None, emit: str = "records"):
-        """Pipelined paired alignment over (start, names, reads1, quals1,
-        reads2, quals2) batches, depth ``STREAM_DEPTH`` as in
-        :meth:`align_stream`; yields (start, payload) in input order.  On
-        the beam route nothing falls back, so nothing is staged: each batch
-        is yielded once it is resolved."""
-        def search(b):
-            return self._align_pe_device(b[2], b[4], beam_width=beam_width,
-                                         max_hits=max_hits)
+                        peopt: PEOpt | None = None, emit: str = "records",
+                        fb_flush: int | None = None,
+                        fb_group: int | None = None):
+        """Pipelined paired alignment over
+        (start, names, reads1, quals1, reads2, quals2) batches, depth
+        ``STREAM_DEPTH`` as in :meth:`align_stream`.  Yields (start, records)
+        (or (start, (lines, flags)) with ``emit="sam"``) in input order.
 
-        def finish(b, handle):
-            s, n1, r1, q1, r2, q2 = b
-            return s, self._align_pe_finish(handle, r1, r2, n1, q1, q2,
-                                            read_offset=s, peopt=peopt,
-                                            emit=emit)
-        return _pipelined(batches, search, finish)
+        Escalations POOL across batches: a batch with seg_phase-retry or
+        beam-fallback reads is STAGED (unresolved: pairing needs the
+        complete per-batch occurrence set, so unlike the single-end
+        stream the whole batch resolution waits for the flush); the flush
+        runs one pooled retry pass and one pooled widest-rung beam,
+        merges each batch's results, and resolves the staged batches.
+        Record content is identical to per-batch escalation; only the
+        grouping differs.  Clean batches resolve and yield immediately.
+        Every batch is resolved right before its own yield, so the
+        per-batch attributes (``last_*_frac``, ``last_overflow``,
+        ``last_rescue_jobs``) read after a yield are that batch's.
+        """
+        fb_flush = self._FB_FLUSH if fb_flush is None else fb_flush
+        fb_group = self._FB_GROUP if fb_group is None else fb_group
+        # staged: (s, names, r1, q1, r2, q2, all_reads, occ, trunc, c2x,
+        #          fb_ids, retry_list, n_seg, stats, overflow)
+        staged = []
+
+        def search(b):
+            all_reads = _pe_reads(b[2], b[4])
+            return all_reads, self._pe_search(all_reads, beam_width=beam_width,
+                                              max_hits=max_hits)
+
+        def finish(b, found):
+            all_reads, handle = found
+            occ, trunc, c2x, fb_ids, retry_list = self._align_pe_occ(
+                handle, all_reads, beam_width=beam_width, max_hits=max_hits,
+                defer=True, peopt=peopt)
+            stats = (self.last_fallback_frac, self.last_ineligible_frac,
+                     self.last_retry_frac)
+            n_seg_b = handle[2] if handle[0] == "pigeon" else None
+            return tuple(b) + (all_reads, occ, trunc, c2x, fb_ids,
+                               retry_list, n_seg_b, stats,
+                               self.last_overflow)
+
+        def resolve_one(ent):
+            (s, n1, r1, q1, r2, q2, _ar, occ, trunc, c2x, _fb, _rt,
+             _ns, st, self.last_overflow) = ent
+            (self.last_fallback_frac, self.last_ineligible_frac,
+             self.last_retry_frac) = st
+            return s, self._resolve_pe(r1, r2, n1, q1, q2, occ, trunc, c2x,
+                                       read_offset=s, peopt=peopt, emit=emit)
+
+        def flush():
+            self._pool_staged_pe(staged, beam_width, max_hits)
+            for ent in staged:
+                yield resolve_one(ent)
+            staged.clear()
+
+        for ent in _pipelined(batches, search, finish):
+            if not ent[10] and not ent[11]:
+                yield from flush()          # keep output in input order
+                yield resolve_one(ent)
+                continue
+            staged.append(ent)
+            fb_pending = sum(len(e[10]) + len(e[11]) for e in staged)
+            if fb_pending >= fb_flush or len(staged) >= fb_group:
+                yield from flush()
+        yield from flush()
+
+    def _pool_staged_pe(self, staged, beam_width, max_hits):
+        """One pooled seg_phase retry per ``n_seg`` group and one pooled
+        beam over the staged paired batches' escalations; merges each
+        batch's parts into its entry (occ replaced, trunc/c2x/overflow
+        arrays written in place)."""
+        retry_groups: dict = {}
+        for si, ent in enumerate(staged):
+            for j, m1 in ent[11]:
+                retry_groups.setdefault(ent[12], []).append((si, j, m1))
+        beam_items = [(si, j) for si, ent in enumerate(staged)
+                      for j in ent[10]]
+        merged: dict = {}      # si -> list of occ parts, rid batch-local
+        for n_seg_g, items in retry_groups.items():
+            reads_r = [staged[si][6][j] for si, j, _m in items]
+            occ2, fb2, missed2 = self._pigeon_retry(
+                reads_r, np.arange(len(reads_r)), n_seg_g)
+            has2 = np.zeros(len(items), bool)
+            if occ2["rid"].size:
+                has2[np.unique(occ2["rid"])] = True
+            for i, (si, j, m1) in enumerate(items):
+                ent = staged[si]
+                if fb2[i] or (missed2[i] > 0 and not has2[i]):
+                    beam_items.append((si, j))
+                elif has2[i]:
+                    mfin = (0 if (missed2[i] == 0 and not fb2[i])
+                            else max(m1, int(missed2[i])))
+                    ent[8][j] = mfin > 0        # trunc
+                    ent[9][j] = mfin            # c2x
+            if occ2["rid"].size:
+                # scatter retry occurrences back per staged batch
+                item_si = np.asarray([si for si, _j, _m in items])
+                item_j = np.asarray([j for _si, j, _m in items])
+                osi = item_si[occ2["rid"]]
+                oj = item_j[occ2["rid"]]
+                for si in np.unique(osi):
+                    sel = osi == si
+                    part = {k: v[sel] for k, v in occ2.items()}
+                    part["rid"] = oj[sel]
+                    merged.setdefault(int(si), []).append(part)
+        if beam_items:
+            sub_occs, sub_trunc, sld, shd = self._beam_rerun(
+                [staged[si][6][j] for si, j in beam_items],
+                beam_width, max_hits)
+            for i, (si, j) in enumerate(beam_items):
+                socc = occ_lists_to_arrays([sub_occs[i]])
+                socc["rid"] = np.full(socc["rid"].size, j, np.int64)
+                merged.setdefault(si, []).append(socc)
+                ent = staged[si]
+                ent[8][j] = bool(sub_trunc[i])
+                ent[14][0][j], ent[14][1][j] = sld[i], shd[i]
+        for si, parts in merged.items():
+            ent = staged[si]
+            allp = [ent[7]] + parts
+            occ = {k: np.concatenate([p[k] for p in allp]) for k in ent[7]}
+            order = np.lexsort((occ["pos"], occ["strand"], occ["score"],
+                                occ["rid"]))
+            staged[si] = ent[:7] + ({k: v[order] for k, v in occ.items()},) \
+                + ent[8:]
 
 
 def _pipelined(batches, search, finish):

@@ -68,10 +68,6 @@ class Hit:
         return self.l - self.k + 1
 
 
-LADDER_TODO = ("the adaptive beam ladder (AdaptiveBeam) is not ported yet: "
-               "ROADMAP.md Queue A item 2")
-
-
 def _pack(i, nmm, ngapo, ngape, seed_mm, st):
     return (i | (nmm << _NMM_SH) | (ngapo << _GAPO_SH) | (ngape << _GAPE_SH)
             | (seed_mm << _SEED_SH) | (st << _ST_SH)) & M32
@@ -337,13 +333,13 @@ def pack_read_batch(reads, max_len=None):
 
 def search_device(idx, fwd, lens, opt, *, beam_width=None, max_hits=32,
                   ladder=None):
-    """Device-only search: packed batch -> RawBeamResult on ``idx.device``.
+    """Device-only search: packed batch -> RawBeamResult on ``idx.device``
+    (a ``LadderRawResult`` when ``ladder`` names the widths of an adaptive
+    beam, which then overrides ``beam_width``).
 
     Queues the width pass and the beam search and reads nothing back.
     ``fwd``/``lens`` are numpy arrays.
     """
-    if ladder:
-        raise NotImplementedError(LADDER_TODO)
     lens = np.asarray(lens)
     B, Lmax = fwd.shape
     budget = {int(L): opt.diff_budget(int(L)) for L in np.unique(lens)}
@@ -358,8 +354,13 @@ def search_device(idx, fwd, lens, opt, *, beam_width=None, max_hits=32,
         D = cal_width_device(idx, fwd_t, lens_t)
     else:
         D = torch.zeros((B, Lmax), dtype=torch.int64, device=dev)
-    return beam_search(idx, fwd_t, lens_t, D, torch.from_numpy(md).to(dev),
-                       opt, beam_width=beam_width, max_hits=max_hits)
+    md_t = torch.from_numpy(md).to(dev)
+    if ladder:
+        from .adaptive import AdaptiveBeam
+        return AdaptiveBeam(idx, opt, ladder=ladder,
+                            max_hits=max_hits)(fwd_t, lens_t, D, md_t)
+    return beam_search(idx, fwd_t, lens_t, D, md_t, opt,
+                       beam_width=beam_width, max_hits=max_hits)
 
 
 def result_to_hits(res, s_mm: int = 3):
@@ -402,5 +403,6 @@ def align_batch(idx, reads, opt, *, beam_width=None, max_hits=32,
     fwd, lens = pack_read_batch(reads, max_len)
     raw = search_device(idx, fwd, lens, opt, beam_width=beam_width,
                         max_hits=max_hits, ladder=ladder)
-    res = finalize_result(raw, opt.s_mm)
+    from .adaptive import finalize_any
+    res = finalize_any(raw, opt.s_mm)
     return result_to_hits(res), res

@@ -123,5 +123,16 @@ def test_out_of_range_batches_raise():
 
 
 def test_ladder_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbeam.align_batch(DT, [T[:50]], AlnOpt(), ladder=(8, 64))
+    """``ladder`` runs the adaptive beam; what raises is a read it cannot
+    pack."""
+    reads = mixed_reads(5)
+    hj, rj = jbeam.align_batch(DJ, reads, AlnOpt(), max_hits=16,
+                               ladder=(8, 64))
+    ht, rt = tbeam.align_batch(DT, reads, AlnOpt(), max_hits=16,
+                               ladder=(8, 64))
+    assert [[astuple(h) for h in hits] for hits in ht] == \
+        [[astuple(h) for h in hits] for hits in hj]
+    np.testing.assert_array_equal(rj.n_live_dropped, rt.n_live_dropped)
+    assert sum(map(len, ht)) >= 20
+    with pytest.raises(ValueError, match="read length"):
+        tbeam.align_batch(DT, [T[:520]], AlnOpt(max_diff=2), ladder=(8, 64))

@@ -375,7 +375,7 @@ def searched(small_ref):
                 r2[q] = (r2[q] + 1) % 4
         r2s.append(r2)
     se = al._align_occ(al._align_device(reads))
-    pe = al._align_pe_occ(al._align_pe_device(r1s, r2s))
+    pe = al._align_pe_occ(al._align_pe_device(r1s, r2s), r1s + r2s)[:3]
     return al, reads, se, r1s, r2s, pe
 
 

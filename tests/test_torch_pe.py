@@ -1,5 +1,6 @@
 """Port paired-end alignment (beam route, CPU) vs hsa_tpu's: byte-equal SAM,
-with a mate rescue exercised; and the port's native-library loader."""
+with a mate rescue exercised; the command line's ``--engine``; and the
+port's native-library loader."""
 
 import os
 import subprocess
@@ -111,8 +112,8 @@ def test_cli_align_pe_matches_jax_cli(pe_corpus):
                        timeout=500)
     assert r.returncode == 0, r.stderr[-2000:]
     out, met = tmp / "port.sam", str(tmp / "m.json")
-    args = ["align-pe", prefix, r1, r2, "--batch", "10", "--device", "cpu",
-            "-f", str(out), "--metrics", met]
+    args = ["align-pe", prefix, r1, r2, "--engine", "beam", "--batch", "10",
+            "--device", "cpu", "-f", str(out), "--metrics", met]
     assert tcli.main(args) == 0
     port = out.read_text()
     assert port == (tmp / "jax.sam").read_text()
@@ -130,12 +131,22 @@ def test_cli_align_pe_matches_jax_cli(pe_corpus):
 
 @pytest.mark.parametrize("what", ["sampe", "auto", "pigeon"])
 def test_unported_paired_routes_raise(pe_corpus, what):
-    tmp, prefix, *_ = pe_corpus
-    argv = (["sampe", prefix] if what == "sampe" else
-            ["align-pe", prefix, str(tmp / "r1.fq"), str(tmp / "r2.fq"),
-             "--engine", what, "--device", "cpu", "-f", str(tmp / "x.sam")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(argv)
+    """``sampe`` still raises; ``align-pe --engine auto`` and ``pigeon`` run
+    and give the reference's lines on that engine."""
+    tmp, prefix, r1s, r2s, names, quals = pe_corpus
+    if what == "sampe":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tcli.main(["sampe", prefix])
+        return
+    out = tmp / f"{what}.sam"
+    assert tcli.main(["align-pe", prefix, str(tmp / "r1.fq"),
+                      str(tmp / "r2.fq"), "--engine", what, "--device", "cpu",
+                      "-f", str(out)]) == 0
+    got = [ln for ln in out.read_text().splitlines() if ln[0] != "@"]
+    want = JAligner(prefix, engine=what).align_pe(r1s, r2s, names, quals,
+                                                  quals, emit="sam")[0]
+    assert got == want
+    assert len(got) == 54 and any("XT:Z:M" in ln for ln in got)
 
 
 def test_pe_path_never_imports_jax(pe_corpus):

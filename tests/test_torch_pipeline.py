@@ -157,30 +157,45 @@ def test_port_never_imports_jax(tmp_path):
 
 @pytest.mark.parametrize("engine", ["auto", "pigeon"])
 def test_unported_engines_raise(corpus, engine):
-    """Single ends run on both engines now (the 70 bp reads are all
-    eligible); what still raises is the paired-end route, and an engine
-    that does not exist."""
+    """Single and paired ends run on both engines (the 70 bp reads are all
+    eligible); what raises is an engine that does not exist."""
     prefix, reads, names, quals = corpus
     al = TAligner(prefix, engine=engine, device="cpu")
     got = al.align(reads, names, quals)
     want = JAligner(prefix, engine=engine).align(reads, names, quals)
     assert [r.to_sam() for r in got] == [r.to_sam() for r in want]
     assert al.last_ineligible_frac == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        al.align_pe(reads[:2], reads[2:4])
+    ja = JAligner(prefix, engine=engine)
+    pe = al.align_pe(reads[:4], reads[4:8], names[:4])
+    assert [r.to_sam() for r in pe] == \
+        [r.to_sam() for r in ja.align_pe(reads[:4], reads[4:8], names[:4])]
+    assert len(pe) == 8 and sum(not r.flag & 4 for r in pe) >= 6
     with pytest.raises(ValueError, match="unknown engine"):
         TAligner(prefix, engine="seed", device="cpu")
 
 
 def test_ladder_raises(corpus, cli_corpus):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TAligner(corpus[0], ladder=(8, 64), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["align", str(cli_corpus / "ref.fa"),
-                   str(cli_corpus / "reads.fq"), "--device", "cpu",
-                   "--ladder", "8,64", "-f", str(cli_corpus / "l.sam")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TAligner(corpus[0], ladder=(8, 64), engine="auto", device="cpu")
+    """The ladder runs: ``Aligner(ladder=...)`` on the beam and on ``auto``
+    and ``align --ladder 8,64`` give the reference's records.  What raises
+    is an engine the command line does not know."""
+    prefix, reads, names, quals = corpus
+    for engine in ("beam", "auto"):
+        ta = TAligner(prefix, ladder=(8, 64), engine=engine, device="cpu")
+        ja = JAligner(prefix, ladder=(8, 64), engine=engine)
+        assert [r.to_sam() for r in ta.align(reads, names, quals)] == \
+            [r.to_sam() for r in ja.align(reads, names, quals)]
+    out = cli_corpus / "l.sam"
+    assert tcli.main(["align", str(cli_corpus / "ref.fa"),
+                      str(cli_corpus / "reads.fq"), "--engine", "beam",
+                      "--device", "cpu", "--ladder", "8,64", "--batch", "8",
+                      "-f", str(out)]) == 0
+    got = [ln for ln in out.read_text().splitlines() if ln[0] != "@"]
+    from hsa_tpu.cli import _stream_batches
+    ja = JAligner(str(cli_corpus / "ref.fa"), ladder=(8, 64), engine="beam")
+    want = [ln for _, (lines, _f) in ja.align_stream(
+        _stream_batches(str(cli_corpus / "reads.fq"), 8), emit="sam")
+        for ln in lines]
+    assert got == want and len(got) == 20
     with pytest.raises(SystemExit):
         tcli.main(["align", str(cli_corpus / "ref.fa"),
                    str(cli_corpus / "reads.fq"), "--engine", "seed"])

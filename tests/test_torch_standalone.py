@@ -86,9 +86,15 @@ assert cli.main(["index", fa]) == 0
 assert cli.main(["align", fa, os.path.join(tmp, "reads.fq"), "--engine",
                  "beam", "--device", "cpu", "--batch", "16", "-f",
                  os.path.join(tmp, "se.sam")]) == 0
+# paired ends at the default engine (auto), then on the adaptive beam
 assert cli.main(["align-pe", fa, os.path.join(tmp, "r1.fq"),
                  os.path.join(tmp, "r2.fq"), "--device", "cpu", "--batch",
-                 "16", "-f", os.path.join(tmp, "pe.sam")]) == 0
+                 "16", "-f", os.path.join(tmp, "pe.sam"), "--metrics",
+                 os.path.join(tmp, "pe.json")]) == 0
+assert cli.main(["align-pe", fa, os.path.join(tmp, "r1.fq"),
+                 os.path.join(tmp, "r2.fq"), "--engine", "beam", "--ladder",
+                 "8,64", "--device", "cpu", "--batch", "16", "-f",
+                 os.path.join(tmp, "pe_ladder.sam")]) == 0
 # the default engine, auto: the pigeonhole engine, here seeded with 6-mers
 # (12 is for genomes of 2^24 bp and more) so that its table cache is written
 from hsa_tpu_torch.pipeline import Aligner
@@ -121,7 +127,8 @@ def _fastq(path, prefix, reads):
 @pytest.mark.parametrize("tree", ["repo", "port_alone"])
 def test_cli_runs_without_the_jax_package(tmp_path, tree):
     """``index``, ``align`` (beam, then the default ``--engine auto``) and
-    ``align-pe`` in a fresh process: neither
+    ``align-pe`` (the default ``auto``, then ``--engine beam --ladder 8,64``)
+    in a fresh process: neither
     ``hsa_tpu`` nor ``jax`` is in ``sys.modules`` afterwards, the library
     loaded is the port's build, and ``hsa_tpu/refpack/`` is untouched.
     With ``port_alone`` the process runs in a directory that holds only a
@@ -174,3 +181,10 @@ def test_cli_runs_without_the_jax_package(tmp_path, tree):
     met = json.load(open(tmp_path / "auto.json"))
     assert met["config"]["engine"] == "auto" and met["reads_mapped"] == 20
     assert any("XT:Z:M" in ln for ln in pe)
+    # paired ends ran on the default engine, auto, and the adaptive beam
+    # places every end where it does
+    assert json.load(open(tmp_path / "pe.json"))["config"]["engine"] == "auto"
+    lad = [ln for ln in (tmp_path / "pe_ladder.sam").read_text().splitlines()
+           if not ln.startswith("@")]
+    assert [ln.split("\t")[:4] for ln in lad] == \
+        [ln.split("\t")[:4] for ln in pe]
