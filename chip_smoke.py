@@ -101,6 +101,22 @@ any result.
    its launches: 2 x n_steps at each of the two rungs), then the first 256
    reads on ``cuda`` and ``cpu``: byte-equal; select_topk held against
    plain at every shape these runs launched.
+7d. The two-phase flow, with both kernels' counts set to 0 just before:
+   ``aln --device cuda`` at the CLI defaults on each mate file of phase
+   7a, ``sampe --device cuda`` over the two ``.sai`` files, then ``aln`` and
+   ``samse`` on phase 8's reads.  Prints each window, pairs/s (and reads/s)
+   over their sum, the ``.sai`` sizes and each ``aln``'s search split into
+   the pigeon route and its inline beam fallback (a beam run per batch:
+   ``aln`` does not pool).  The ``sampe`` records must equal phase 7a's
+   ``align-pe`` records byte for byte (the ``samse`` records phase 8's
+   ``align`` records, checked in phase 9); select_topk launched 2 x
+   (longest read + 7) times per inline beam run and held against plain at
+   every shape ``aln`` launched it at (the tail batch's run is narrow);
+   glocal_screen launched once per ``sampe`` batch with rescue jobs and held
+   at every shape no earlier phase held; the first 512 pairs through ``aln``
+   x2 + ``sampe`` on ``cuda`` and ``cpu``: byte-equal; last, ``aln
+   --resume`` over the finished run searches nothing (no select_topk
+   launch) and leaves the ``.sai`` arrays as they were.
 8. Pigeon main path: the seed table is phase 7a's (loaded from
    ``kmer12.npz``); ``align --engine auto --device cuda`` at
    the CLI defaults over phase 3's reads with a 200 bp read after every
@@ -117,7 +133,9 @@ any result.
    batch through ``Aligner.align`` for the engine's fallback, ineligible,
    trunc and retry fractions; the first 260 reads through ``align
    --engine auto`` on ``cuda`` and on ``cpu``: byte-equal SAMs, equal to
-   the full run's first records; and the pigeon engine's records against
+   the full run's first records; phase 7d's ``aln`` + ``samse`` records
+   equal to the full run's, byte for byte; and the pigeon engine's records
+   against
    the beam's on one batch of phase 3's reads (the rule is
    ``engine_compare``'s docstring: byte-equal but for the engines'
    documented differences, which are listed; anything else fails).
@@ -546,6 +564,15 @@ def ensure_index(genome, seed, workdir):
     return prefix, secs
 
 
+def read_sam(path):
+    with open(path) as fh:
+        return fh.read().split("\n")[:-1]
+
+
+def sam_body(lines):
+    return [l for l in lines if not l.startswith("@")]
+
+
 def run_align(prefix, fq, out_dir, device, tag, engine="beam", extra=()):
     """``hsa_tpu_torch.cli align --engine <engine>`` at the CLI defaults
     (plus ``extra`` arguments).  Returns (SAM lines, header included;
@@ -556,10 +583,8 @@ def run_align(prefix, fq, out_dir, device, tag, engine="beam", extra=()):
     if cli.main(["align", prefix, fq, "--engine", engine, "--device", device,
                  "-f", sam, "--metrics", met, *extra]) != 0:
         fail(f"align --engine {engine} --device {device} failed")
-    with open(sam) as fh:
-        lines = fh.read().split("\n")
     with open(met) as fh:
-        return lines[:-1], json.load(fh)
+        return read_sam(sam), json.load(fh)
 
 
 def align_window(met):
@@ -823,10 +848,8 @@ def run_align_pe(prefix, fq1, fq2, out_dir, device, tag, engine="beam"):
     if cli.main(["align-pe", prefix, fq1, fq2, *route, "--device", device,
                  "-f", sam, "--metrics", met]) != 0:
         fail(f"align-pe {' '.join(route)} --device {device} failed")
-    with open(sam) as fh:
-        lines = fh.read().split("\n")
     with open(met) as fh:
-        return lines[:-1], json.load(fh)
+        return read_sam(sam), json.load(fh)
 
 
 def check_pairs(records, origin, is_heavy=None):
@@ -1079,6 +1102,128 @@ def ladder_phase(prefix, reads, origin, opt, workdir):
           f"{CROSS_CHECK} reads gives byte-equal SAMs on cuda and cpu "
           f"({time.perf_counter() - t0:.3f} s)")
     return launches
+
+
+# -- 7d. the two-phase flow: aln, samse, sampe ---------------------------------------
+def run_aln(prefix, fq, out_dir, device, tag, extra=()):
+    """``hsa_tpu_torch.cli aln`` at the CLI defaults (plus ``extra``).
+    Returns (.sai path, metrics dict)."""
+    from hsa_tpu_torch import cli
+    sai = os.path.join(out_dir, f"{tag}.sai.npz")
+    met = os.path.join(out_dir, f"{tag}_metrics.json")
+    if cli.main(["aln", prefix, fq, "--device", device, "-f", sai,
+                 "--metrics", met, *extra]) != 0:
+        fail(f"aln --device {device} on {fq} failed")
+    with open(met) as fh:
+        return sai, json.load(fh)
+
+
+def run_resolve(prefix, sais, fqs, out_dir, device, tag):
+    """``samse`` (one ``.sai``) or ``sampe`` (two) at the CLI defaults.
+    Returns (SAM lines, header included; metrics dict)."""
+    from hsa_tpu_torch import cli
+    cmd = "samse" if len(sais) == 1 else "sampe"
+    sam = os.path.join(out_dir, f"{tag}.sam")
+    met = os.path.join(out_dir, f"{tag}_metrics.json")
+    if cli.main([cmd, prefix, *sais, *fqs, "--device", device, "-f", sam,
+                 "--metrics", met]) != 0:
+        fail(f"{cmd} --device {device} failed")
+    with open(met) as fh:
+        return read_sam(sam), json.load(fh)
+
+
+class FallbackClock:
+    """Records each call of ``Aligner._beam_rerun`` (``aln``'s inline beam
+    fallback, per batch) while it is entered: (reads, longest read,
+    seconds).  The call ends in a host readback of its hits, so its host
+    time is the card's time too."""
+
+    def __enter__(self):
+        from hsa_tpu_torch.pipeline import Aligner
+        self.runs = []
+        self._real = real = Aligner._beam_rerun
+
+        def timed(al, bsub, *a, **kw):
+            t0 = time.perf_counter()
+            out = real(al, bsub, *a, **kw)
+            self.runs.append((len(bsub), max(len(r) for r in bsub),
+                              time.perf_counter() - t0))
+            return out
+        Aligner._beam_rerun = timed
+        return self
+
+    def __exit__(self, *exc):
+        from hsa_tpu_torch.pipeline import Aligner
+        Aligner._beam_rerun = self._real
+
+
+def print_aln(name, met, runs):
+    """One ``aln`` run: its window and its search split into the pigeon
+    search and the inline beam fallback (``runs``: FallbackClock's)."""
+    w = align_window(met)
+    fb = sum(t for _, _, t in runs)
+    for i, b in enumerate(met["batches"]):
+        print(f"  {name} batch {i}: {b['n']} reads, profile {b['profile']}, "
+              f"fallback {b['fallback']}, trunc {b['trunc']}, retry "
+              f"{b['retry']}")
+    print(f"{name}: {met['reads_in']} reads in a window of {w:.3f} s "
+          f"({met['reads_in'] / w:.1f} reads/s); search {met['t_search_s']} "
+          f"s, of it the inline beam fallback {fb:.3f} s in {len(runs)} runs "
+          f"over {[n for n, _, _ in runs]} reads (longest "
+          f"{[m for _, m, _ in runs]} bp: "
+          f"{' '.join(f'{t:.3f}' for _, _, t in runs)} s) and the pigeon "
+          f"route {met['t_search_s'] - fb:.3f} s; beam overflow reads "
+          f"{met.get('beam_overflow_reads', 0)}; index load {met['t_index_load_s']} "
+          f"s")
+    return w
+
+
+def two_phase_cross_check(prefix, r1s, r2s, workdir):
+    """``aln`` x2 + ``sampe`` on the first PE_CROSS_CHECK pairs on the card
+    and on the CPU (the plain path): the SAMs must be byte-equal."""
+    fq1, fq2 = write_pairs(workdir, "two_phase_cross_check",
+                           r1s[:PE_CROSS_CHECK], r2s[:PE_CROSS_CHECK])
+    out = {}
+    for device in ("cuda", "cpu"):
+        sais = [run_aln(prefix, fq, workdir, device,
+                        f"two_phase_cross_{device}_{m}")[0]
+                for m, fq in ((1, fq1), (2, fq2))]
+        out[device], _ = run_resolve(prefix, sais, (fq1, fq2), workdir,
+                                     device, f"two_phase_cross_{device}")
+    if out["cpu"] != out["cuda"]:
+        card, cpu = out["cuda"], out["cpu"]
+        bad = next(j for j in range(max(len(cpu), len(card)))
+                   if cpu[j:j + 1] != card[j:j + 1])
+        fail(f"aln x2 + sampe on the CPU differs from the card at line "
+             f"{bad}:\n  card: {card[bad:bad + 1]}\n  cpu:  {cpu[bad:bad + 1]}")
+    if not any("\tXT:Z:M" in line for line in out["cuda"]):
+        fail("the two-phase cross-check's SAM holds no rescued mate")
+
+
+def aln_resume_check(prefix, fq, sai, workdir, tag):
+    """``aln --resume`` over a finished run: no index load, no search (no
+    select_topk launch) and the ``.sai`` arrays unchanged."""
+    from hsa_tpu_torch.kernels import select
+    with np.load(sai) as z:
+        before = {k: z[k] for k in z.files}
+    launches = select.KERNEL.launches
+    t0 = time.perf_counter()
+    again, met = run_aln(prefix, fq, workdir, "cuda", tag, ("--resume",))
+    if again != sai:
+        fail("aln --resume wrote another file")
+    with np.load(sai) as z:
+        after = {k: z[k] for k in z.files}
+    same = sorted(after) == sorted(before) and all(
+        after[k].dtype == before[k].dtype and np.array_equal(after[k],
+                                                             before[k])
+        for k in before)
+    n = select.KERNEL.launches - launches
+    print(f"aln --resume over the finished run: {time.perf_counter() - t0:.3f} "
+          f"s, {n} select_topk launches, .sai arrays "
+          f"{'unchanged' if same else 'CHANGED'}, reads_in {met['reads_in']}")
+    if n or not same or "t_search_s" in met or "t_index_load_s" in met:
+        fail("aln --resume over a finished run loaded the index, searched "
+             "again or changed the .sai")
 
 
 # -- 8-10. the pigeon engine: align --engine auto -------------------------------------
@@ -2044,6 +2189,108 @@ def main():
         f"align --ladder {LADDER}", dict(select.KERNEL.launch_shapes),
         compared, a.seed, int32_ops_s)
 
+    phase("7d. the two-phase flow: aln x2 + sampe on phase 7a's pairs, aln + "
+          "samse on phase 8's reads, --device cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    select.KERNEL.launches = sw.KERNEL.launches = 0
+    select.KERNEL.launch_shapes.clear()
+    sw.KERNEL.launch_shapes.clear()
+    with FallbackClock() as clock:
+        tp_alns, tp_sais, tp_runs = [], [], []
+        for m, fq in ((1, pp_fq1), (2, pp_fq2)):
+            sai, met = run_aln(prefix, fq, workdir, "cuda", f"smoke_aln_pe{m}")
+            tp_sais.append(sai)
+            tp_alns.append(met)
+            tp_runs.append(list(clock.runs))
+            clock.runs.clear()
+        marks = [select.KERNEL.launches]
+        tp_lines, tp_met = run_resolve(prefix, tp_sais, (pp_fq1, pp_fq2),
+                                       workdir, "cuda", "smoke_sampe")
+        tp_glocal = sw.KERNEL.launches
+        tp_glocal_launched = sorted(sw.KERNEL.launch_shapes.elements())
+        marks.append(select.KERNEL.launches)
+        se_sai, se_aln = run_aln(prefix, p_fq, workdir, "cuda", "smoke_aln_se")
+        se_runs = list(clock.runs)
+        marks.append(select.KERNEL.launches)
+        se_lines, se_met = run_resolve(prefix, [se_sai], (p_fq,), workdir,
+                                       "cuda", "smoke_samse")
+        marks.append(select.KERNEL.launches)
+    tp_select = select.KERNEL.launches
+    tp_launched = dict(select.KERNEL.launch_shapes)
+    # select_topk launches: aln on the mate files, sampe, aln on the single
+    # ends, samse
+    tp_aln_select, se_aln_select = marks[0], marks[2] - marks[1]
+    tp_resolve_select = (marks[1] - marks[0]) + (marks[3] - marks[2])
+    tp_aln_launches = tp_aln_select + se_aln_select
+    ws = [print_aln(f"aln --device cuda on mate file {m + 1}", met, runs)
+          for m, (met, runs) in enumerate(zip(tp_alns, tp_runs))]
+    w_pe = align_window(tp_met)
+    for i, b in enumerate(tp_met["batches"]):
+        print(f"  sampe batch {i}: {b['n'] // 2} pairs, {b['rescue_jobs']} "
+              f"rescue jobs")
+    n_pairs = tp_met["reads_in"] // 2
+    sizes = [os.path.getsize(s) for s in tp_sais]
+    print(f"sampe --device cuda: {n_pairs} pairs in a window of {w_pe:.3f} s; "
+          f"the two-phase flow {ws[0]:.3f} + {ws[1]:.3f} + {w_pe:.3f} = "
+          f"{sum(ws) + w_pe:.3f} s, {n_pairs / (sum(ws) + w_pe):.1f} pairs/s "
+          f"(first runs; align-pe's window in phase 7a "
+          f"{align_window(pp_met):.3f} s); .sai sizes {sizes} bytes")
+    w_se = print_aln("aln --device cuda on phase 8's reads", se_aln, se_runs)
+    w_samse = align_window(se_met)
+    print(f"samse --device cuda: {se_met['reads_in']} reads in a window of "
+          f"{w_samse:.3f} s; the two-phase flow {w_se + w_samse:.3f} s, "
+          f"{se_met['reads_in'] / (w_se + w_samse):.1f} reads/s; .sai size "
+          f"{os.path.getsize(se_sai)} bytes")
+    tp_records = sam_body(tp_lines)
+    same = tp_records == pp_records
+    print(f"sampe's records {'equal' if same else 'DIFFER FROM'} phase 7a's "
+          f"align-pe records ({len(tp_records)} lines, byte for byte)")
+    if not same:
+        bad = next(j for j in range(max(len(tp_records), len(pp_records)))
+                   if tp_records[j:j + 1] != pp_records[j:j + 1])
+        fail(f"aln x2 + sampe differs from align-pe at record {bad}:\n  "
+             f"align-pe: {pp_records[bad:bad + 1]}\n  sampe:    "
+             f"{tp_records[bad:bad + 1]}")
+    tp_steps = [2 * (mx + pe_opt["max_gapo"] + pe_opt["max_gape"])
+                for runs in tp_runs + [se_runs] for _, mx, _ in runs]
+    want_g = sum(b["rescue_jobs"] > 0 for b in tp_met["batches"])
+    print(f"launches of the two-phase flow: select_topk {tp_aln_launches} in "
+          f"aln ({tp_aln_select} on the mate files, {se_aln_select} on the "
+          f"single ends; expected 2 x (longest read + "
+          f"{pe_opt['max_gapo'] + pe_opt['max_gape']}) steps for each inline "
+          f"beam run = {sum(tp_steps)}), {tp_resolve_select} in samse and "
+          f"sampe; glocal_screen {tp_glocal} in sampe (expected one per batch "
+          f"with rescue jobs = {want_g})")
+    if tp_aln_launches == 0 or tp_aln_launches != sum(tp_steps) or \
+            sum(tp_launched.values()) != tp_select or tp_resolve_select:
+        fail(f"select_topk launched {tp_aln_launches} times in aln (expected "
+             f"{sum(tp_steps)} and more than 0) and {tp_resolve_select} in "
+             f"samse/sampe (expected 0)")
+    if tp_glocal == 0 or tp_glocal != want_g or sorted(
+            r for r, _, _ in tp_glocal_launched) != sorted(
+            b["rescue_jobs"] for b in tp_met["batches"] if b["rescue_jobs"]):
+        fail(f"glocal_screen was launched at {tp_glocal_launched} in sampe, "
+             f"expected one launch per batch with rescue jobs "
+             f"{[b['rescue_jobs'] for b in tp_met['batches']]}")
+    by_path["aln"] = select_path_phase("aln", tp_launched, compared, a.seed,
+                                       int32_ops_s)
+    held = {g["shape"] for g in glocal}
+    for R, L, G in sorted(set(tp_glocal_launched)):
+        print(f"glocal_screen launch on sampe: R={R} L={L} G={G}"
+              + (" (compared above)" if f"R={R} L={L} G={G}" in held else ""))
+        if f"R={R} L={L} G={G}" not in held:
+            glocal.append(glocal_compare(
+                make_glocal_case(R, L, G, np.random.RandomState(a.seed + 9)),
+                "main path (sampe)", int32_ops_s, native=True))
+    t0 = time.perf_counter()
+    two_phase_cross_check(prefix, pp_r1s, pp_r2s, workdir)
+    print(f"cross-check: aln x2 + sampe on the first {PE_CROSS_CHECK} pairs "
+          f"gives byte-equal SAMs on cuda and cpu "
+          f"({time.perf_counter() - t0:.3f} s)")
+    aln_resume_check(prefix, pp_fq1, tp_sais[0], workdir, "smoke_aln_pe1")
+    print(f"phase 7d took {time.perf_counter() - t_phase:.3f} s")
+
     phase("8. pigeon main path: align --engine auto --device cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2106,6 +2353,16 @@ def main():
           f"full run")
     if not same:
         fail("the prefix's SAM differs from the full run's first records")
+    same = sam_body(se_lines) == pg_records
+    print(f"phase 7d's aln + samse records {'equal' if same else 'DIFFER FROM'}"
+          f" align --engine auto's ({len(pg_records)} lines, byte for byte)")
+    if not same:
+        se_records = sam_body(se_lines)
+        bad = next(j for j in range(max(len(se_records), len(pg_records)))
+                   if se_records[j:j + 1] != pg_records[j:j + 1])
+        fail(f"aln + samse differs from align --engine auto at record {bad}:"
+             f"\n  align: {pg_records[bad:bad + 1]}\n  samse: "
+             f"{se_records[bad:bad + 1]}")
     n_hdr = sum(l.startswith("@") for l in lines)
     engine_compare(al_p, prefix, reads[:BATCH], lines[n_hdr:], origin[:BATCH])
     del al_p
@@ -2139,10 +2396,12 @@ def main():
         "source": "hsa_tpu_torch/csrc/select_topk.cu",
         "replaces": "hsa_tpu/kernels/select.py:51",
         "launches": launches + pe_select + pp_select + ladder_select
-        + pg_select,
+        + tp_select + pg_select,
         "launches_by_path": {"align": launches, "align-pe": pe_select,
                              "align-pe --engine auto": pp_select,
                              f"align --ladder {LADDER}": ladder_select,
+                             "aln (x2 on phase 7a's pairs, once on phase "
+                             "8's reads)": tp_aln_launches,
                              "align --engine auto": pg_select,
                              "repeat path (align_stream)": repeat_select},
         "launches_per_batch": {"align": launches // len(batches),
@@ -2164,12 +2423,14 @@ def main():
         "name": "glocal_screen", "route": "cuda",
         "source": "hsa_tpu_torch/csrc/glocal_screen.cu",
         "replaces": "hsa_tpu/kernels/sw.py:114",
-        "launches": pe_glocal + pp_glocal,
+        "launches": pe_glocal + pp_glocal + tp_glocal,
         "launches_by_path": {"align-pe": pe_glocal,
-                             "align-pe --engine auto": pp_glocal},
+                             "align-pe --engine auto": pp_glocal,
+                             "sampe": tp_glocal},
         "launches_per_batch": {"align-pe": pe_glocal // len(pe_batches),
                                "align-pe --engine auto":
-                               pp_glocal // len(pp_batches)},
+                               pp_glocal // len(pp_batches),
+                               "sampe": tp_glocal // len(tp_met["batches"])},
         "max_abs_err": max(g["max_abs_err"] for g in glocal),
         "ms": glocal[0]["ms"], "plain_ms": glocal[0]["plain_ms"],
         "bound_ms": glocal[0]["bound_ms"],

@@ -8,11 +8,13 @@ layer (``config``, ``alphabet``, ``refpack`` with its native sources under
 module names.  The index directory format is unchanged, so both packages
 read and write the same index.
 
-Covered so far, from index to SAM: single-end alignment through the
-pigeonhole seed-and-verify engine with the beam as its fallback
-(``engine="auto"``, ``search/pigeon.py``), and single-end and paired-end
-alignment through the exhaustive beam engine (``engine="beam"``).  Both
-Pallas kernels of
+Covered so far, from index to SAM, with every command of ``hsa-tpu``'s
+CLI: single-end and paired-end alignment through the pigeonhole
+seed-and-verify engine with the beam as its fallback (``engine="auto"``, the
+default, ``search/pigeon.py``) or through the exhaustive beam engine alone
+(``engine="beam"``, flat or adaptive), fused (``align``, ``align-pe``) or in
+two phases (``aln`` to a ``.sai.npz`` that either package reads, then
+``samse`` or ``sampe``).  Both Pallas kernels of
 ``hsa_tpu`` are hand-written CUDA kernels: the top-K selection of every beam
 step (``kernels/select.py``, ``csrc/select_topk.cu``) and the glocal DP that
 screens the paired-end mate rescues (``kernels/sw.py``,

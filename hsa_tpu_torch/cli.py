@@ -1,16 +1,28 @@
 """Command-line interface of the port (counterpart of ``hsa_tpu/cli.py``).
 
-Subcommands: ``index`` (both packages read and write the same index
-directory), ``align`` (fused search + resolution -> SAM; ``--engine
-auto|pigeon|beam``, default ``auto``: the pigeonhole engine with the beam
-as its fallback; ``--ladder 8,64`` makes that beam the adaptive one) and
-``align-pe`` (paired ends, with mate rescue; the same engines and default).
-Options, the ``--resume`` manifests and the ``--metrics`` JSON are ``hsa-tpu
-align``'s and ``align-pe``'s; ``--device`` picks the torch device.
-``sampe`` waits for ``aln`` and raises.
+Subcommands, in the reference's order: ``index`` (both packages read and
+write the same index directory); the two-phase flow ``aln`` (search ->
+``.sai.npz`` v2 position records, one part shard per batch, resumable),
+``samse`` and ``sampe`` (resolve a ``.sai`` with its reads, or two with
+their mates, to SAM; a ``.sai`` written by either package resolves in the
+other); ``align`` (fused search + resolution -> SAM) and ``align-pe``
+(paired ends, with mate rescue).  The searching commands take ``--engine
+auto|pigeon|beam``, default ``auto``: the pigeonhole engine with the beam as
+its fallback; ``--ladder 8,64`` makes that beam the adaptive one.  Options,
+the ``--resume`` manifests and the ``--metrics`` JSON are ``hsa-tpu``'s;
+``--device`` picks the torch device (default ``cuda``).
 
 Usage:
     python -m hsa_tpu_torch.cli index ref.fa [-p prefix] [-s sa_intv]
+    python -m hsa_tpu_torch.cli aln prefix reads.fq -f out.sai.npz
+        [--engine auto] [--device cuda] [--metrics m.json] [--resume]
+        [search opts]
+    python -m hsa_tpu_torch.cli samse prefix out.sai.npz reads.fq
+        [-f out.sam] [-n n_multi] [--device cuda] [--metrics m.json]
+        [--resume]
+    python -m hsa_tpu_torch.cli sampe prefix r1.sai.npz r2.sai.npz r1.fq
+        r2.fq [-f out.sam] [-a max_isize] [-n n_multi] [--device cuda]
+        [--metrics m.json] [--resume]
     python -m hsa_tpu_torch.cli align prefix reads.fq [-f out.sam]
         [--engine auto] [--device cuda] [--metrics m.json] [--resume]
         [search opts]
@@ -41,9 +53,7 @@ from .io.sam import sam_header
 from .metrics import RunMetrics
 from .pipeline import ENGINES, Aligner, ReadBatch, build_index
 from .refpack import ensure_refpack
-
-SAMPE_TODO = ("sampe: the two-phase paired flow waits for `aln` (ROADMAP.md "
-              "Queue A item 4); use align-pe")
+from .resolve.samse import resolve_from_occ_arrays
 
 
 def _add_search_opts(p):
@@ -234,6 +244,229 @@ def cmd_index(argv):
     print(f"[hsa-tpu-torch] index written to {out}", file=sys.stderr)
 
 
+_OCC_FIELDS = ("rid", "pos", "strand", "score", "nmm", "ngapo", "ngape")
+
+
+def cmd_aln(argv):
+    """Search phase of the two-phase flow (``hsa-tpu aln``).
+
+    The ``.sai.npz`` v2 holds position records (the located, deduped
+    occurrence arrays of ``Aligner._align_occ`` with their truncation
+    information) and the search options, field for field and dtype for
+    dtype as ``hsa-tpu aln`` writes them: ``samse``/``sampe`` of either
+    package re-apply the same trim and budgets and locate nothing.  Each
+    batch runs its own beam fallback, as the reference's does (no pooling
+    across batches), and is written as one part shard; the shards are
+    merged, with ``rid`` made global, at the end.  ``--resume`` reuses the
+    shards the manifest covers and, where the manifest and the ``.sai``
+    show a finished run, searches nothing.
+    """
+    p = argparse.ArgumentParser(prog="hsa-tpu-torch aln")
+    p.add_argument("prefix")
+    p.add_argument("reads")
+    p.add_argument("-f", "--out", required=True, help="output .sai.npz")
+    p.add_argument("--metrics", default=None, help="write run metrics JSON here")
+    p.add_argument("--resume", action="store_true",
+                   help="resume an interrupted run from its part shards")
+    p.add_argument("--engine", default="auto", choices=ENGINES,
+                   help="search engine routing (default auto)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to search on (default cuda)")
+    _add_search_opts(p)
+    a = p.parse_args(argv)
+    met = RunMetrics()
+    opt = _opt_from_args(a)
+    met.config = dict(cmd="aln", reads=a.reads, batch=a.batch,
+                      beam_width=a.beam_width, ladder=a.ladder,
+                      engine=a.engine, device=a.device, opt=opt.to_dict())
+    args_key = f"aln|{a.reads}|{a.batch}|{a.beam_width}|{a.n}|{a.engine}"
+    done = _load_manifest(a.out, args_key) if a.resume else 0
+    if done and _sai_finished(a.out, done, a.batch, opt):
+        met.log(f"{a.out} already holds all {done} reads")
+        met.count("reads_in", done)
+        met.dump(a.metrics)
+        return
+    ladder = tuple(int(x) for x in a.ladder.split(",")) if a.ladder else None
+    with met.timer("index_load"):
+        al = Aligner(a.prefix, opt, ladder=ladder, engine=a.engine,
+                     device=a.device)
+        al.warm_pigeon()       # K-mer tables: built once, loaded after
+    if done:
+        met.log(f"resuming at read {done}")
+    parts_dir = a.out + ".parts"
+    os.makedirs(parts_dir, exist_ok=True)
+    # one part shard per batch: host memory stays flat whatever the input's
+    # size, and the final .sai.npz is the shards' concatenation.  A shard
+    # also holds the pigeon engine's repeat profile as the batch left it
+    # (the profile moves from batch to batch), so that a resumed run
+    # searches the next batch at the caps an uninterrupted run would
+    n_reads = 0
+    part_files = []
+    for s, _bn, br, _bq in _stream_batches(a.reads, a.batch, opt.trim_qual):
+        n_reads = s + len(br)
+        pf = os.path.join(parts_dir, f"part_{s:012d}.npz")
+        part_files.append(pf)
+        if n_reads <= done and os.path.exists(pf):
+            with np.load(pf) as z:
+                if "profile" in z:
+                    al._pigeon_profile = str(z["profile"])
+                    al._profile_clean = int(z["profile_clean"])
+            met.count("reads_in", len(br))
+            continue
+        prof = al._pigeon_profile
+        with met.timer("search"):
+            h = al._align_device(br, beam_width=a.beam_width)
+            occ, trunc, c2x = al._align_occ(h, beam_width=a.beam_width)
+        ld, _hd = al.last_overflow
+        met.count("beam_overflow_reads", int((np.asarray(ld) > 0).sum()))
+        met.count("reads_in", len(br))
+        met.batches.append(dict(
+            n=len(br), profile=prof,
+            fallback=round(al.last_fallback_frac, 4),
+            trunc=round(al.last_trunc_frac, 4),
+            retry=round(al.last_retry_frac, 4)))
+        np.savez(pf, nreads=np.int64(len(br)),
+                 trunc=np.asarray(trunc, bool),
+                 c2x=np.asarray(c2x, np.int64),
+                 profile=al._pigeon_profile,
+                 profile_clean=np.int64(al._profile_clean),
+                 **{k: occ[k] for k in _OCC_FIELDS})
+        _save_manifest(a.out, args_key, n_reads, -1)
+        met.log(f"aln {n_reads} reads")
+    # merge the shards in order, rid made global
+    merged = {k: [] for k in _OCC_FIELDS + ("trunc", "c2x")}
+    start = 0
+    for pf in part_files:
+        with np.load(pf) as z:
+            for k in merged:
+                merged[k].append(z[k] + start if k == "rid" else z[k])
+            start += int(z["nreads"])
+    np.savez_compressed(
+        a.out, version=np.int64(2), batch=np.int64(a.batch),
+        nreads=np.int64(start), opt=json.dumps(opt.to_dict()),
+        **{k: (np.concatenate(v) if v else np.zeros(0, np.int64))
+           for k, v in merged.items()})
+    for pf in part_files:
+        os.remove(pf)
+    os.rmdir(parts_dir)
+    met.dump(a.metrics)
+
+
+def _sai_finished(path, nreads, batch, opt):
+    """Whether ``path`` is the v2 .sai of a finished ``aln`` over ``nreads``
+    reads in batches of ``batch`` with the search options ``opt``."""
+    if not os.path.exists(path):
+        return False
+    try:
+        sopt, sbatch, snreads = _sai_meta(path)
+    except (SystemExit, OSError, ValueError, KeyError):
+        return False
+    return (sbatch, snreads, sopt.to_dict()) == (batch, nreads, opt.to_dict())
+
+
+def _sai_meta(path):
+    """(AlnOpt, batch_size, nreads) stored in a v2 .sai.npz."""
+    with np.load(path) as z:
+        if "version" not in z or int(z["version"]) != 2:
+            raise SystemExit(f"error: {path} is not a v2 .sai.npz "
+                             "(re-run `hsa-tpu-torch aln`)")
+        return (AlnOpt(**json.loads(str(z["opt"]))), int(z["batch"]),
+                int(z["nreads"]))
+
+
+def _sai_stream(path):
+    """Yield (start, occ dict (batch-local rid), trunc, c2x) per batch.
+
+    The v2 payload is position records: the occurrence arrays are already
+    located and deduped, so resolution needs no device locate pass.
+    """
+    with np.load(path) as z:
+        if "version" not in z or int(z["version"]) != 2:
+            raise SystemExit(f"error: {path} is not a v2 .sai.npz")
+        bsz = max(int(z["batch"]), 1)
+        nreads = int(z["nreads"])
+        fields = {k: z[k] for k in _OCC_FIELDS}
+        trunc = z["trunc"]
+        c2x = z["c2x"]
+    rid = fields["rid"]
+    if not (rid[1:] >= rid[:-1]).all():
+        raise ValueError(f"corrupt .sai stream (rid order): {path}")
+    if len(trunc) != nreads or len(c2x) != nreads:
+        raise ValueError(f"corrupt .sai: {path}")
+    for s in range(0, nreads, bsz):
+        e = min(s + bsz, nreads)
+        lo, hi = np.searchsorted(rid, [s, e])
+        occ = {k: (v[lo:hi] - s if k == "rid" else v[lo:hi])
+               for k, v in fields.items()}
+        yield s, occ, trunc[s:e], c2x[s:e]
+
+
+def _sam_sink(a, args_key):
+    """(SAM sink, reads or pairs already written): with ``--resume`` and a
+    manifest that matches ``args_key`` the output ``-f`` is appended to,
+    else written anew (stdout without ``-f``)."""
+    done = _load_manifest(a.out, args_key) if a.resume else 0
+    if not a.out:
+        return contextlib.nullcontext(sys.stdout), done
+    return open(a.out, "a" if done else "w"), done
+
+
+def cmd_samse(argv):
+    """Resolve a ``.sai.npz`` (either package's ``aln``) with its reads to
+    SAM (``hsa-tpu samse``): the aln-time options come from the ``.sai``,
+    so trim and budgets are applied again and resolution sees exactly the
+    reads the search saw."""
+    p = argparse.ArgumentParser(prog="hsa-tpu-torch samse")
+    p.add_argument("prefix")
+    p.add_argument("sai")
+    p.add_argument("reads")
+    p.add_argument("-f", "--out", default=None)
+    p.add_argument("-n", dest="n_multi", type=int, default=3)
+    p.add_argument("--metrics", default=None, help="write run metrics JSON here")
+    p.add_argument("--resume", action="store_true",
+                   help="resume an interrupted run (requires -f)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the index loads onto (default cuda)")
+    a = p.parse_args(argv)
+    met = RunMetrics()
+    opt, bsz, _n_sai = _sai_meta(a.sai)
+    met.config = dict(cmd="samse", sai=a.sai, reads=a.reads, device=a.device,
+                      opt=opt.to_dict())
+    with met.timer("index_load"):
+        al = Aligner(a.prefix, opt, device=a.device)
+    args_key = f"samse|{a.sai}|{a.reads}|{bsz}"
+    sink, done = _sam_sink(a, args_key)
+    sopt = SamseOpt(n_multi=a.n_multi)
+    n = 0
+    with sink as out:
+        if not done:
+            out.write(sam_header(al.meta, "samse"))
+        else:
+            met.log(f"resuming at read {done}")
+        for (s, bn, br, bq), (s2, occ, trunc, c2x) in _zip_lockstep(
+                _stream_batches(a.reads, bsz, opt.trim_qual),
+                _sai_stream(a.sai)):
+            if s != s2 or len(br) != len(trunc):
+                raise ValueError(f"read file {a.reads} does not match .sai "
+                                 f"{a.sai}")
+            n = s + len(br)
+            if n <= done:
+                met.count("reads_in", len(br))
+                continue
+            with met.timer("resolve"):
+                lines, flags = resolve_from_occ_arrays(
+                    al.text, al.meta, br, bn, bq, occ, trunc.tolist(), opt,
+                    sopt, read_offset=s, emit="sam", c2_extra=c2x)
+            out.write("\n".join(lines) + "\n")
+            met.count("reads_in", len(br))
+            met.count("records_out", len(lines))
+            met.count("reads_mapped", sum(1 for f in flags if not f & 4))
+            _save_manifest(a.out, args_key, n, -1)
+        out.flush()
+    print(f"[hsa-tpu-torch samse] {n} reads", file=sys.stderr)
+    met.dump(a.metrics)
+
+
 def _write_stream(stream, out, met, al, path, args_key, *, pairs: bool):
     """Write a stream of ``(start, (SAM lines, flags))`` batches to ``out``:
     per batch its metrics, its lines and the resume manifest.  With
@@ -292,9 +525,7 @@ def cmd_align(argv):
                      device=a.device)
         al.warm_pigeon()       # K-mer tables: built once, loaded after
     args_key = f"align|{a.reads}|{a.batch}|{a.beam_width}|{a.n}"
-    done = _load_manifest(a.out, args_key) if a.resume else 0
-    mode = "a" if (a.resume and done) else "w"
-    sink = open(a.out, mode) if a.out else contextlib.nullcontext(sys.stdout)
+    sink, done = _sam_sink(a, args_key)
     with sink as out:
         if not done:
             out.write(sam_header(al.meta, "align"))
@@ -377,9 +608,7 @@ def cmd_align_pe(argv):
                      device=a.device)
         al.warm_pigeon()       # K-mer tables: built once, loaded after
     args_key = f"align-pe|{a.reads1}|{a.reads2}|{a.batch}|{a.beam_width}|{a.n}"
-    done = _load_manifest(a.out, args_key) if a.resume else 0
-    mode = "a" if (a.resume and done) else "w"
-    sink = open(a.out, mode) if a.out else contextlib.nullcontext(sys.stdout)
+    sink, done = _sam_sink(a, args_key)
     with sink as out:
         if not done:
             out.write(sam_header(al.meta, "align-pe"))
@@ -410,11 +639,85 @@ def cmd_align_pe(argv):
 
 
 def cmd_sampe(argv):
-    raise NotImplementedError(SAMPE_TODO)
+    """Resolve two ``.sai.npz`` (either package's ``aln`` over each mate
+    file) with their mates to paired SAM (``hsa-tpu sampe``); the mate
+    rescue screens on ``--device``.  Both ``.sai`` files must agree on batch
+    size and search options."""
+    p = argparse.ArgumentParser(prog="hsa-tpu-torch sampe")
+    p.add_argument("prefix")
+    p.add_argument("sai1")
+    p.add_argument("sai2")
+    p.add_argument("reads1")
+    p.add_argument("reads2")
+    p.add_argument("-f", "--out", default=None)
+    p.add_argument("-a", dest="max_isize", type=int, default=500)
+    p.add_argument("-n", dest="n_multi", type=int, default=3)
+    p.add_argument("--metrics", default=None, help="write run metrics JSON here")
+    p.add_argument("--resume", action="store_true",
+                   help="resume an interrupted run (requires -f)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to rescue mates on (default cuda)")
+    a = p.parse_args(argv)
+    met = RunMetrics()
+    opt, bsz, _n1 = _sai_meta(a.sai1)
+    opt2, bsz2, _n2 = _sai_meta(a.sai2)
+    if bsz != bsz2:
+        raise ValueError(".sai batch sizes differ")
+    if opt.to_dict() != opt2.to_dict():
+        raise ValueError(".sai search options differ")
+    met.config = dict(cmd="sampe", sai1=a.sai1, sai2=a.sai2, device=a.device,
+                      opt=opt.to_dict())
+    with met.timer("index_load"):
+        al = Aligner(a.prefix, opt, device=a.device)
+    peopt = PEOpt(max_isize=a.max_isize, n_multi=a.n_multi)
+    args_key = f"sampe|{a.sai1}|{a.sai2}|{a.reads1}|{a.reads2}|{bsz}"
+    sink, done = _sam_sink(a, args_key)
+    n = 0
+    with sink as out:
+        if not done:
+            out.write(sam_header(al.meta, "sampe"))
+        else:
+            met.log(f"resuming at pair {done}")
+        # both mates' read and .sai streams advance in lockstep; insert-size
+        # inference is batch-local, as in align-pe
+        for (s, n1, r1, q1), (s2, _n2, r2, q2), (s3, occ1, tr1, cx1), \
+                (s4, occ2, tr2, cx2) in _zip_lockstep(
+                    _stream_batches(a.reads1, bsz, opt.trim_qual),
+                    _stream_batches(a.reads2, bsz, opt.trim_qual),
+                    _sai_stream(a.sai1), _sai_stream(a.sai2)):
+            if not (s == s2 == s3 == s4 and len(r1) == len(r2) == len(tr1)):
+                raise ValueError("mate/sai files do not match")
+            n = s + len(r1)
+            if n <= done:
+                met.count("reads_in", 2 * len(r1))
+                continue
+            with met.timer("resolve"):
+                # one occurrence dict over both ends (end 2's rid shifted by
+                # B): each .sai block is rid-sorted, so the concatenation is
+                # in the canonical (rid, score, strand, pos) order
+                B = len(r1)
+                occ = {k: np.concatenate([occ1[k], occ2[k] + B if k == "rid"
+                                          else occ2[k]])
+                       for k in occ1}
+                lines, _flags = al._resolve_pe(
+                    r1, r2, n1, q1, q2, occ,
+                    np.concatenate([tr1, tr2]).astype(bool),
+                    np.concatenate([cx1, cx2]), read_offset=s, peopt=peopt,
+                    emit="sam")
+            out.write("\n".join(lines))
+            out.write("\n")
+            met.count("reads_in", 2 * B)
+            met.count("records_out", len(lines))
+            met.batches.append(dict(n=len(lines),
+                                    rescue_jobs=al.last_rescue_jobs))
+            _save_manifest(a.out, args_key, n, -1)
+        out.flush()
+    print(f"[hsa-tpu-torch sampe] {n} pairs", file=sys.stderr)
+    met.dump(a.metrics)
 
 
-COMMANDS = {"index": cmd_index, "align": cmd_align, "align-pe": cmd_align_pe,
-            "sampe": cmd_sampe}
+COMMANDS = {"index": cmd_index, "aln": cmd_aln, "samse": cmd_samse,
+            "sampe": cmd_sampe, "align": cmd_align, "align-pe": cmd_align_pe}
 
 
 def main(argv=None):

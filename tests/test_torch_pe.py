@@ -131,20 +131,26 @@ def test_cli_align_pe_matches_jax_cli(pe_corpus):
 
 @pytest.mark.parametrize("what", ["sampe", "auto", "pigeon"])
 def test_unported_paired_routes_raise(pe_corpus, what):
-    """``sampe`` still raises; ``align-pe --engine auto`` and ``pigeon`` run
-    and give the reference's lines on that engine."""
+    """Every paired route runs and gives the reference's lines: ``align-pe
+    --engine auto`` and ``pigeon``, and ``sampe`` over the ``.sai`` files of
+    ``aln`` on each mate file (at the default engine, auto)."""
     tmp, prefix, r1s, r2s, names, quals = pe_corpus
-    if what == "sampe":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcli.main(["sampe", prefix])
-        return
+    r1, r2 = str(tmp / "r1.fq"), str(tmp / "r2.fq")
     out = tmp / f"{what}.sam"
-    assert tcli.main(["align-pe", prefix, str(tmp / "r1.fq"),
-                      str(tmp / "r2.fq"), "--engine", what, "--device", "cpu",
-                      "-f", str(out)]) == 0
+    if what == "sampe":
+        sai = [str(tmp / f"m{m}.sai.npz") for m in (1, 2)]
+        for fq, s in zip((r1, r2), sai):
+            assert tcli.main(["aln", prefix, fq, "--device", "cpu", "-f",
+                              s]) == 0
+        assert tcli.main(["sampe", prefix, *sai, r1, r2, "--device", "cpu",
+                          "-f", str(out)]) == 0
+    else:
+        assert tcli.main(["align-pe", prefix, r1, r2, "--engine", what,
+                          "--device", "cpu", "-f", str(out)]) == 0
     got = [ln for ln in out.read_text().splitlines() if ln[0] != "@"]
-    want = JAligner(prefix, engine=what).align_pe(r1s, r2s, names, quals,
-                                                  quals, emit="sam")[0]
+    engine = "auto" if what == "sampe" else what
+    want = JAligner(prefix, engine=engine).align_pe(r1s, r2s, names, quals,
+                                                    quals, emit="sam")[0]
     assert got == want
     assert len(got) == 54 and any("XT:Z:M" in ln for ln in got)
 

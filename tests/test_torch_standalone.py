@@ -95,6 +95,18 @@ assert cli.main(["align-pe", fa, os.path.join(tmp, "r1.fq"),
                  os.path.join(tmp, "r2.fq"), "--engine", "beam", "--ladder",
                  "8,64", "--device", "cpu", "--batch", "16", "-f",
                  os.path.join(tmp, "pe_ladder.sam")]) == 0
+# the two-phase flow: aln on each mate file, then samse and sampe
+for m in ("1", "2"):
+    assert cli.main(["aln", fa, os.path.join(tmp, f"r{m}.fq"), "--device",
+                     "cpu", "--batch", "16", "-f",
+                     os.path.join(tmp, f"r{m}.sai.npz")]) == 0
+assert cli.main(["samse", fa, os.path.join(tmp, "r1.sai.npz"),
+                 os.path.join(tmp, "r1.fq"), "--device", "cpu", "-f",
+                 os.path.join(tmp, "samse.sam")]) == 0
+assert cli.main(["sampe", fa, os.path.join(tmp, "r1.sai.npz"),
+                 os.path.join(tmp, "r2.sai.npz"), os.path.join(tmp, "r1.fq"),
+                 os.path.join(tmp, "r2.fq"), "--device", "cpu", "-f",
+                 os.path.join(tmp, "sampe.sam")]) == 0
 # the default engine, auto: the pigeonhole engine, here seeded with 6-mers
 # (12 is for genomes of 2^24 bp and more) so that its table cache is written
 from hsa_tpu_torch.pipeline import Aligner
@@ -126,9 +138,10 @@ def _fastq(path, prefix, reads):
 
 @pytest.mark.parametrize("tree", ["repo", "port_alone"])
 def test_cli_runs_without_the_jax_package(tmp_path, tree):
-    """``index``, ``align`` (beam, then the default ``--engine auto``) and
-    ``align-pe`` (the default ``auto``, then ``--engine beam --ladder 8,64``)
-    in a fresh process: neither
+    """``index``, ``align`` (beam, then the default ``--engine auto``),
+    ``align-pe`` (the default ``auto``, then ``--engine beam --ladder
+    8,64``) and the two-phase flow (``aln`` on each mate file, ``samse``,
+    ``sampe``) in a fresh process: neither
     ``hsa_tpu`` nor ``jax`` is in ``sys.modules`` afterwards, the library
     loaded is the port's build, and ``hsa_tpu/refpack/`` is untouched.
     With ``port_alone`` the process runs in a directory that holds only a
@@ -171,6 +184,14 @@ def test_cli_runs_without_the_jax_package(tmp_path, tree):
     pe = [ln for ln in (tmp_path / "pe.sam").read_text().splitlines()
           if not ln.startswith("@")]
     assert len(se) == 20 and len(pe) == 40
+    # the two-phase flow: sampe gives align-pe's records, samse maps end 1
+    two = [ln for ln in (tmp_path / "sampe.sam").read_text().splitlines()
+           if not ln.startswith("@")]
+    assert two == pe
+    samse = [ln for ln in (tmp_path / "samse.sam").read_text().splitlines()
+             if not ln.startswith("@")]
+    assert [ln.split("\t")[:4] for ln in samse] == \
+        [[f"p{j}", "0", "c1", ln.split("\t")[3]] for j, ln in enumerate(samse)]
     assert sum(int(ln.split("\t")[1]) & 4 == 0 for ln in se) == 20
     # the pigeon route places every read where the beam does
     auto = [ln for ln in (tmp_path / "auto.sam").read_text().splitlines()
