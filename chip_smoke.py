@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card::
 
     python3 chip_smoke.py [--seed 1] [--profile]
     python3 chip_smoke.py --glocal-only R,L,G     # phases 1 and 5 alone
+    python3 chip_smoke.py --probes-only           # phases 1 and 2b alone
 
 It imports nothing of JAX and nothing of the JAX package: it drives the
 port through its CLI (``hsa_tpu_torch.cli``), its ``Aligner``, its kernel
@@ -14,9 +15,9 @@ the rest of the repository beside it) it exits non-zero before printing
 any result.
 
 1. Device and build: the card's name and power limit (``nvidia-smi``),
-   the torch/CUDA versions; builds both CUDA kernels from
-   ``hsa_tpu_torch/csrc`` (select_topk, glocal_screen), one nvcc each, in
-   parallel, with their times.
+   the torch/CUDA versions; builds every CUDA kernel from
+   ``hsa_tpu_torch/csrc`` (select_topk, glocal_screen, gather_rows,
+   table_take, onehot_gather), one nvcc each, in parallel, with their times.
 2. select_topk against plain, on the card, at the beam step's two shapes
    (frontier ``[576, 32768]`` K=64 with window, hit merge ``[352, 32768]``
    K=32; three payloads each; seeded, ~30% of the keys valid): valid keys
@@ -30,6 +31,25 @@ any result.
    the edges of the kernel's compaction and rank, each held exactly against
    plain and timed: every key valid; no valid key in every third column;
    a width that is no multiple of 32.
+2b. The FM row-gather probes: the port's probe modules
+   (``hsa_tpu_torch.tools``: gather_probe, gather_probe2, gather_probe3,
+   sync_probe), driven as ``python -m ... --device cuda`` drives them at
+   every test that launched a Pallas kernel on the TPU, with the three
+   gather kernels' counts set to 0 just before and read just after (each
+   must be above 0; each probe's own check must read correct=True).  Then
+   each of the 27 launches of those 14 ``pallas_call``s at its probe's own
+   inputs: the kernel (gather_rows, table_take or onehot_gather) exactly
+   equal to its plain version and to the probe's check ``tab[q]`` (rounded
+   through float32 for the one-hot product), the library call
+   (``index_select``; ``torch.matmul`` over a prebuilt one-hot) the same
+   function; median ms of the three in turns (one call between CUDA
+   events, so the host's time to issue it counts), their device ms (calls
+   queued behind a sleeping kernel, so that the card runs them back to
+   back), the kernel's host ms per launch, and the bound.
+   table_take's tables above the card's on-chip capacity (the largest
+   thread-block cluster it schedules x 7,264 rows) must be refused with
+   ``ValueError`` before any launch; prints the capacity and the largest
+   probe table that ran.
 3. Single-end main path through the CLI, in process: an i.i.d. genome of
    46,709,983 bp (human chr21 scale) from ``--seed``; ``hsa_tpu_torch.cli
    index`` (which builds the native index library and prints its time;
@@ -48,6 +68,19 @@ any result.
    over the whole align window and, per batch, how long its yield was
    waited for (the stream searches batches ahead, so that is no per-batch
    rate).
+4b. gather_rows against the library at the main path's own table, phase
+   3's forward occ rows (1,459,688 x 32 bytes), for 131,072 rows twice:
+   uniform random rows, and the block ids of one real ``extend`` (step 21
+   of a backward search of phase 6's first 32,768 pairs' 65,536 ends, the
+   lanes of a paired pigeon batch).  The yardstick is ``index_select``
+   with int64 ids, the call inside ``fm._gather_rows``; beside it int32
+   ids, ``fm._gather_rows`` whole and ``tab[b]``.  Exact against plain,
+   timed warm (the table is about the size of the 50 MB L2, so part of it
+   is there) and with the L2 flushed by a 128 MB write ahead of every call
+   (outside the events), each also at every pipe depth (device ms).  Then
+   the port's ``occ_probe5`` on phase 3's index.  The gather kernels'
+   launches from phase 3 to phase 10, less these, must be 0 each: they are
+   on no main path.
 5. glocal_screen against plain, on the card, on 16,384 rescue-like jobs
    (reads of 150 bp, windows of 576 bp; exact, 2-mismatch, deletion,
    random and shorter read-in-window classes; seeded): cost and end must
@@ -180,7 +213,12 @@ any result.
    int32 operations a cell, written out unfused, which is no bound on this
    card (a kernel can read under it) and is kept so that rows of earlier
    measurements compare; host_ms is the wrapper's host time per launch, the
-   floor of ``ms`` for a small launch), then, as the last line,
+   floor of ``ms`` for a small launch; for the gather kernels the probe
+   modules' launches and, under ``launches_by_path``, the count measured
+   on the main paths (null with ``--probes-only``), device_ms (queued
+   calls), every probe launch under ``shapes`` and for gather_rows phase
+   4b's four cases under ``main_table``, its top-level times those of the
+   real extend with the L2 flushed), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -301,8 +339,9 @@ def device_info():
 def build_kernels():
     """Every CUDA source of the package, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
-    from hsa_tpu_torch.kernels import select, sw
-    kernels = {"select_topk": select.KERNEL, "glocal_screen": sw.KERNEL}
+    from hsa_tpu_torch.kernels import gather, select, sw
+    kernels = {"select_topk": select.KERNEL, "glocal_screen": sw.KERNEL,
+               **gather.KERNELS}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
         for fut in [ex.submit(k.lib) for k in kernels.values()]:
@@ -358,9 +397,10 @@ def compare_select(k_out, p_out):
     return err
 
 
-def time_turns(fns, rounds=15, warm=3):
+def time_turns(fns, rounds=15, warm=3, before=None):
     """Median ms of each function, timed in turns (a, b, b, a, ...) with
-    CUDA events around every call."""
+    CUDA events around every call; ``before`` (say, a write that flushes the
+    L2 cache) runs ahead of each call, outside the events."""
     import torch
     for f in fns:
         for _ in range(warm):
@@ -369,6 +409,8 @@ def time_turns(fns, rounds=15, warm=3):
     for r in range(rounds):
         order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
         for i in order:
+            if before is not None:
+                before()
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -501,6 +543,373 @@ def select_path_phase(path, launched, compared, seed, int32_ops_s):
                  f"{'with' if window else 'without'} a window no time")
         step.append(compared[max(keys, key=lambda k: (k[1], k[0]))])
     return step
+
+
+# -- 2b. the FM row-gather probes --------------------------------------------
+# dense int8 tensor-core peak (H100 SXM data sheet), for onehot_gather's bound
+INT8_TC_OPS_S = 1.979e15
+# the port's probe modules and the tests of each that launch a kernel ([]: all)
+PROBE_RUNS = [("gather_probe", ["dma", "vmemtake"]),
+              ("gather_probe2", ["dmapipe", "rowloop", "onehot", "vmemsize"]),
+              ("gather_probe3", []), ("sync_probe", ["dma", "vmemtake"])]
+# rows one extend gathers over a paired pigeon batch's 65,536 lanes (both
+# interval ends, search/fm.py:extend)
+MAIN_TABLE_QUERIES = 131_072
+L2_FLUSH_BYTES = 128 << 20      # a write that evicts the card's 50 MB L2
+# device_ms: calls queued behind torch.cuda._sleep, long enough (about 1 ms
+# a call at the card's clock) for the host to issue them all first
+QUEUED_CALLS = 20
+SLEEP_CYCLES_PER_CALL = 2_000_000
+# the probes' tables above this card's on-chip capacity (116,224 rows of 32
+# bytes), each refused by table_take before launch; the probe modules print
+# the first of vmemsize's bisect (it stops there) and sync_probe's 4 MB one
+REFUSED_TABLES = [f"vmem table {mb} MB" for mb in (4, 8, 16, 32, 64, 96)] + [
+    "pallas VMEM take [4MB] Q=2^17"]
+REFUSED_BY_MODULES = ["vmem table 4 MB", "pallas VMEM take [4MB] Q=2^17"]
+# the backward-search step of phase 4b's real extend: past log4(n) (12.7 at
+# 46.7 Mbp) most live intervals span a row or two
+EXTEND_STEP = 20
+PROBE_PHASE = ("2b. the FM row-gather probes: gather_rows, table_take and "
+               "onehot_gather at every TPU probe launch they replace")
+
+
+def probe_modules():
+    import importlib
+    return [(importlib.import_module(f"hsa_tpu_torch.tools.{name}"), tests)
+            for name, tests in PROBE_RUNS]
+
+
+def drive_probes(dev="cuda"):
+    """The port's probe modules through their entry point (what ``python -m
+    hsa_tpu_torch.tools.<name> --device cuda <test ...>`` runs), in process,
+    with the three gather kernels' counts set to 0 just before and read just
+    after.  Each probe's own check must read correct=True, and the only
+    FAILED lines are table_take's refusals (``ValueError``) of
+    REFUSED_BY_MODULES, each once."""
+    import contextlib
+    import io
+    import torch
+    from hsa_tpu_torch.kernels import gather
+    from hsa_tpu_torch.tools import _timing
+    torch.cuda.synchronize()
+    for k in gather.KERNELS.values():
+        k.launches = 0
+        k.launch_shapes.clear()
+    refusals = []
+    for mod, tests in probe_modules():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _timing.main(mod.TESTS, ["--device", dev, *tests], mod.__doc__)
+        print(f"python -m {mod.__name__} --device {dev} {' '.join(tests)} "
+              f"({time.perf_counter() - t0:.3f} s):")
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            print(f"  {line}")
+        for line in lines:
+            label = line.split(": FAILED ValueError")[0]
+            if "FAILED" in line and label in REFUSED_BY_MODULES:
+                refusals.append(label)
+            elif "correct=False" in line or "FAILED" in line:
+                fail(f"{mod.__name__} on the card: {line}")
+    torch.cuda.synchronize()
+    print(f"refused before launch by the probe modules: {refusals}")
+    if sorted(refusals) != sorted(REFUSED_BY_MODULES):
+        fail(f"the probe modules refused {refusals}, not "
+             f"{REFUSED_BY_MODULES}")
+    launches = {name: k.launches for name, k in gather.KERNELS.items()}
+    print(f"launches of the probe modules: {launches}")
+    if not all(launches.values()):
+        fail(f"a gather kernel was launched no time by the probes: {launches}")
+    return launches
+
+
+def device_ms(fn, calls=QUEUED_CALLS, before=None):
+    """Device time per call: median over ``calls`` calls queued behind a
+    sleeping kernel, so that the card runs them back to back whatever the
+    host's time to issue each, with CUDA events around every call.
+    ``before`` runs ahead of each call, outside its events."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * calls)
+    events = []
+    for _ in range(calls):
+        if before is not None:
+            before()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    return statistics.median(e0.elapsed_time(e1) for e0, e1 in events)
+
+
+def host_ms(fn, rounds=15):
+    """Median host time to issue one call (the floor of a single call's
+    event-timed ms)."""
+    import torch
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def gather_bound(kernel, tab, q):
+    """(bound ms, what binds it, bytes ms, operations ms): bytes are the
+    indices read, the rows written and one 32-byte sector per 32 bytes of
+    each distinct row read, over 3.35 TB/s; operations (onehot_gather only)
+    the one-hot product exactly in int8, 2 x Q x R x 32, over the int8
+    tensor-core peak."""
+    import torch
+    nb, w = tab.shape
+    nq = q.numel()
+    distinct = torch.unique(q.clamp(0, nb - 1)).numel()
+    t_bytes = (4 * nq + 4 * w * nq + 4 * w * distinct) / HBM_BYTES_S
+    t_ops = (2 * nq * nb * 32 / INT8_TC_OPS_S
+             if kernel == "onehot_gather" else 0.0)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", t_bytes * 1e3,
+            t_ops * 1e3)
+
+
+def gather_compare(name, kernel, run_k, run_p, run_l, tab, q, expected,
+                   shape, replaces, before=None, variants=None):
+    """Kernel == plain == ``expected`` exactly and the library call the same
+    function, then median ms of the three in turns and their device ms
+    (with ``before`` ahead of each call, outside both), the kernel's host ms
+    per launch and the bound.  ``variants`` (label -> (call, its output as
+    int32 words)) are other library calls of the same function, checked and
+    timed in the same turns."""
+    import torch
+    from hsa_tpu_torch.kernels import gather
+    k_out, p_out = run_k(), run_p()
+    torch.cuda.synchronize()            # a fault in the kernel shows here
+    err = int((k_out.long() - p_out.long()).abs().max()) if k_out.numel() \
+        else 0
+    if err or not torch.equal(k_out, p_out):
+        fail(f"{kernel} {name} differs from its plain version (max |err| "
+             f"{err})")
+    if not np.array_equal(k_out.cpu().numpy().view(np.uint32), expected):
+        fail(f"{kernel} {name} differs from the probe's own check tab[q]")
+    lib = run_l()
+    if kernel == "onehot_gather":
+        lib = gather.float_to_words(lib)
+    if not torch.equal(lib, p_out):
+        fail(f"the library yardstick of {kernel} {name} computes another "
+             "function")
+    variants = variants or {}
+    for label, (fn, words) in variants.items():
+        if not torch.equal(words(fn()), p_out):
+            fail(f"{label} ({kernel} {name}) computes another function")
+    fns = [run_k, run_p, run_l] + [fn for fn, _ in variants.values()]
+    times = time_turns(fns, before=before)
+    ms, plain_ms, library_ms = times[:3]
+    dev = [device_ms(f, before=before) for f in fns]
+    bound_ms, bound_by, bytes_ms, ops_ms = gather_bound(kernel, tab, q)
+    h_ms = host_ms(run_k)
+    print(f"{kernel} {name} ({shape}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms; device time "
+          f"{dev[0]:.4f} / {dev[1]:.4f} / {dev[2]:.4f} ms; host time per launch {h_ms:.4f} ms; bound {bound_ms:.4g} ms "
+          f"({bound_by}; bytes {bytes_ms:.4g} ms"
+          + (f", int8 tensor cores {ops_ms:.4g} ms" if ops_ms else "")
+          + f"; {ms / bound_ms:.1f}x); max |err| {err}")
+    for i, label in enumerate(variants, 3):
+        print(f"  library variant {label}: {times[i]:.4f} ms, device time "
+              f"{dev[i]:.4f} ms")
+    return dict(case=name, replaces=replaces, shape=shape, rows=tab.shape[0],
+                queries=q.numel(), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, device_ms=dev[0],
+                plain_device_ms=dev[1], library_device_ms=dev[2],
+                host_ms=h_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms,
+                max_abs_err=err, library_variants={
+                    label: dict(ms=times[i], device_ms=dev[i])
+                    for i, label in enumerate(variants, 3)})
+
+
+def probe_case(case, capacity, dev="cuda"):
+    """One launch of a TPU probe's kernel at the probe's own inputs, on the
+    card: refused before launch when it is table_take's and the table is
+    above the chip's ``capacity`` (rows), else compared and timed."""
+    import torch
+    from hsa_tpu_torch.kernels import gather
+    tab_np, q_np, tab, q = case.tensors(dev)
+    nb, w = tab.shape
+    shape = f"tab [{nb}, {w}] q [{len(q_np)}]" + (
+        f" pipe={case.pipe} chunk={case.chunk or gather.CHUNK}"
+        if case.kernel == "gather_rows" else "")
+    if case.kernel == "table_take" and nb > capacity:
+        n0 = gather.TABLE_TAKE.launches
+        try:
+            case.run(tab, q)
+        except ValueError as e:
+            print(f"table_take {case.label} ({shape}): refused before launch: "
+                  f"{e}")
+        else:
+            fail(f"table_take ran {case.label}, above the chip's {capacity} "
+                 "rows")
+        torch.cuda.synchronize()
+        if gather.TABLE_TAKE.launches != n0:
+            fail("table_take counted a launch for a refused table")
+        return dict(case=case.label, replaces=case.replaces, shape=shape,
+                    refused=True)
+    if case.kernel == "onehot_gather":
+        oh = (torch.arange(nb, device=dev)[None, :] == q[:, None]).float()
+        tabf = gather.words_to_float(tab)
+        run_l = lambda: torch.matmul(oh, tabf)                 # noqa: E731
+    else:
+        run_l = lambda: torch.index_select(tab, 0, q)          # noqa: E731
+    return gather_compare(case.label, case.kernel, lambda: case.run(tab, q),
+                          lambda: case.run(tab, q, plain=True), run_l, tab, q,
+                          case.expected(tab_np, q_np), shape, case.replaces)
+
+
+def probe_phase(dev="cuda"):
+    """The three gather kernels at every TPU probe launch they replace: the
+    probe modules driven as a user runs them (the launch counts), then each
+    launch held exactly against plain and the probe's own check and timed;
+    table_take's refusals above the chip's capacity asserted."""
+    import torch
+    from hsa_tpu_torch.kernels import gather
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matrix products are on: onehot_gather's plain version "
+             "needs full float32")
+    launches = drive_probes(dev)
+    capacity = gather.table_take_capacity(dev)
+    print(f"table_take: this card stages at most {capacity} rows "
+          f"({capacity * 32 / 2 ** 20:.3f} MiB) in one cluster")
+    rows = defaultdict(list)
+    for mod, _ in probe_modules():
+        for cases in mod.KERNEL_CASES.values():
+            for case in cases:
+                rows[case.kernel].append(probe_case(case, capacity, dev))
+    ran = [r for r in rows["table_take"] if not r.get("refused")]
+    refused = [r["case"] for r in rows["table_take"] if r.get("refused")]
+    if not ran or sorted(refused) != sorted(REFUSED_TABLES):
+        fail(f"table_take ran {len(ran)} of the probes' tables and refused "
+             f"{refused}, not {REFUSED_TABLES}")
+    print(f"table_take: the largest probe table that ran: "
+          f"{max(ran, key=lambda r: r['rows'])['case']}; refused: "
+          f"{', '.join(refused)}")
+    return launches, rows
+
+
+def extend_block_ids(idx, ends):
+    """int64 block ids of a real ``extend``: ``cat([k, l + 1]) >> 5``, what
+    ``search/fm.py:extend`` hands ``_gather_rows``, at step EXTEND_STEP + 1
+    of a backward search of each end (``exact_search`` over its last
+    EXTEND_STEP bases first)."""
+    import torch
+    from hsa_tpu_torch.search import exact
+    reads_rev, lens = exact.pack_reads(ends, EXTEND_STEP)
+    k, l, alive = exact.exact_search(idx, reads_rev, lens)
+    print(f"extend at step {EXTEND_STEP + 1} over {len(ends)} ends: "
+          f"{int(alive.sum())} live, {int((l - k).eq(0).sum())} intervals of "
+          "one row")
+    return torch.cat([k, l + 1]) >> 5
+
+
+def wide_to_words(x):
+    """int64 values in [0, 2^32) -> int32 bit patterns."""
+    return (x - ((x >> 31) << 32)).int()
+
+
+def main_table_phase(prefix, seed, ends, dev="cuda"):
+    """gather_rows against the library at the main path's own table, phase
+    3's forward occ rows, for MAIN_TABLE_QUERIES rows twice: uniform random
+    rows, and the block ids of a real ``extend`` over ``ends`` (a paired
+    pigeon batch's 65,536 lanes).  The library yardstick is
+    ``index_select`` with int64 ids, the call inside ``fm._gather_rows``;
+    int32 ids, ``fm._gather_rows`` whole and ``tab[b]`` beside it.  Each
+    warm (the table is about as large as the L2 cache, so part of it is
+    there) and with the L2 flushed by a 128 MB write ahead of every call,
+    each also at every pipe depth (device ms)."""
+    import torch
+    from hsa_tpu_torch.kernels import gather
+    from hsa_tpu_torch.search import fm
+    from hsa_tpu_torch.tools.occ_probe5 import load_index
+    idx = load_index(prefix, dev)
+    tab = idx.occ_blocks
+    tab_np = tab.cpu().numpy().view(np.uint32)
+    nb = tab.shape[0]
+    uniform = torch.from_numpy(np.random.RandomState(seed + 11).randint(
+        0, nb, MAIN_TABLE_QUERIES).astype(np.int64)).to(dev)
+    real = extend_block_ids(idx, ends)
+    if real.numel() != MAIN_TABLE_QUERIES:
+        fail(f"the extend gathers {real.numel()} rows, not "
+             f"{MAIN_TABLE_QUERIES}")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    out = {}
+    for ids, b in (("uniform", uniform), ("extend", real)):
+        b32 = b.int()
+        expected = tab_np[b32.cpu().numpy()]
+        shape = (f"tab [{nb}, 8] ({tab.numel() * 4 / 1e6:.1f} MB) q "
+                 f"[{b.numel()}] {ids} pipe=8 chunk={gather.CHUNK}")
+        variants = {"index_select, int32 ids": (
+            lambda: torch.index_select(tab, 0, b32), lambda x: x),
+            "fm._gather_rows, int64 ids": (
+            lambda: fm._gather_rows(tab, b), wide_to_words),
+            "tab[b], int64 ids": (lambda: tab[b], lambda x: x)}
+        for mode, before in (("warm", None),
+                             ("L2 flushed", lambda: flush.fill_(7))):
+            key = f"{ids}, {mode}"
+            out[key] = gather_compare(
+                f"at the main path's table, {key}", "gather_rows",
+                lambda: gather.gather_rows(tab, b32),
+                lambda: gather.rows_plain(tab, b32),
+                lambda: torch.index_select(tab, 0, b), tab, b32, expected,
+                shape, "main path table", before=before, variants=variants)
+            by_pipe = {pipe: device_ms(
+                lambda: gather.gather_rows(tab, b32, pipe), before=before)
+                for pipe in gather.PIPES}
+            print(f"gather_rows at the main path's table, {key}, device ms "
+                  "by pipe: " + ", ".join(f"pipe={p} {ms:.4f}"
+                                          for p, ms in by_pipe.items()))
+            out[key]["device_ms_by_pipe"] = by_pipe
+    return out
+
+
+def gather_rows_json(launches, rows, main_table=None, main_launches=None):
+    """The kernel-table rows of the three gather kernels: their launches
+    those of the probe modules, beside ``main_launches`` (each kernel's
+    count on the main paths, as measured; None, printed null, when no main
+    path ran)."""
+    out = []
+    for name in ("gather_rows", "table_take", "onehot_gather"):
+        ran = [r for r in rows[name] if not r.get("refused")]
+        if name == "gather_rows" and main_table:
+            top, per = main_table["extend, L2 flushed"], (
+                "one extend's gather of the main path's occ rows, L2 flushed")
+        else:
+            top = max(ran, key=lambda r: (r["queries"], r["rows"]))
+            per = "the probe launch with the most queries (then rows)"
+        row = {"name": name, "route": "cuda",
+               "source": f"hsa_tpu_torch/csrc/{name}.cu",
+               "replaces": ", ".join(dict.fromkeys(r["replaces"]
+                                                   for r in rows[name])),
+               "launches": launches[name],
+               "launches_by_path": {
+                   "main paths": (None if main_launches is None
+                                  else main_launches[name]),
+                   "probe modules": launches[name]},
+               "max_abs_err": max(r["max_abs_err"] for r in ran)}
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                  "host_ms", "device_ms", "plain_device_ms",
+                  "library_device_ms"):
+            row[k] = top[k]
+        row["ms_per"] = per
+        row["shape"] = top["shape"]
+        if name == "gather_rows" and main_table:
+            row["main_table"] = main_table
+        row["shapes"] = rows[name]
+        out.append(row)
+    return out
 
 
 # -- 3. main path ----------------------------------------------------------------
@@ -734,14 +1143,7 @@ def glocal_compare(arrs, name, int32_ops_s, rounds=15, native=False):
     ms, plain_ms = time_turns(
         [lambda: [run_k() for _ in range(GLOCAL_CALLS)], run_p], rounds=rounds)
     ms /= GLOCAL_CALLS
-    host = []
-    for _ in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_k()                         # returns when the launch is issued
-        host.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    host_ms = statistics.median(host) * 1e3
+    h_ms = host_ms(run_k, rounds)
     native_ms = None
     if native:
         job = (reads.astype(np.uint8), np.arange(R, dtype=np.int64) * L, lens,
@@ -762,7 +1164,7 @@ def glocal_compare(arrs, name, int32_ops_s, rounds=15, native=False):
     bound_ms, ops11_ms = max(t_fused, t_bytes) * 1e3, max(t_ops11, t_bytes) * 1e3
     bound_by = "operations" if t_fused >= t_bytes else "bytes"
     print(f"glocal_screen {name} R={R} L={L} G={G}: kernel {ms:.4f} ms (the "
-          f"wrapper's host time per launch {host_ms:.4f} ms), plain "
+          f"wrapper's host time per launch {h_ms:.4f} ms), plain "
           f"{plain_ms:.4f} ms, "
           + (f"native glocal_batch (host, with traceback) {native_ms:.4f} ms, "
              f"costs equal the native's, " if native else "")
@@ -771,7 +1173,7 @@ def glocal_compare(arrs, name, int32_ops_s, rounds=15, native=False):
           f"{ms / bound_ms:.2f}x); the {GLOCAL_OPS_PER_CELL} unfused "
           f"operations a cell, no bound, {ops11_ms:.4f} ms "
           f"({ms / ops11_ms:.2f}x); max |err| {err}")
-    return dict(case=name, shape=f"R={R} L={L} G={G}", ms=ms, host_ms=host_ms,
+    return dict(case=name, shape=f"R={R} L={L} G={G}", ms=ms, host_ms=h_ms,
                 plain_ms=plain_ms, native_ms=native_ms, bound_ms=bound_ms,
                 bound_ops11_ms=ops11_ms, bound_by=bound_by, cells=cells,
                 max_abs_err=err)
@@ -1931,6 +2333,9 @@ def main():
                          "plain), then the same at this shape; prints no "
                          "result line.  For holding two checkouts' kernels "
                          "against each other in one call")
+    ap.add_argument("--probes-only", action="store_true",
+                    help="only phases 1 and 2b (the gather probes' kernels); "
+                         "prints their kernel rows and no result line")
     a = ap.parse_args()
 
     import torch
@@ -1939,7 +2344,7 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         import hsa_tpu_torch  # noqa: F401
-        from hsa_tpu_torch.kernels import select, sw
+        from hsa_tpu_torch.kernels import gather, select, sw
     except ImportError as e:
         fail(f"the repository is not beside this script ({e})")
 
@@ -1956,8 +2361,18 @@ def main():
             int32_ops_s)
         return
 
+    if a.probes_only:
+        phase(PROBE_PHASE)
+        probe_launches, probe_rows = probe_phase()
+        print(json.dumps({"kernels": gather_rows_json(probe_launches,
+                                                      probe_rows)}))
+        return
+
     phase("2. select_topk kernel against its plain version on the card")
     shapes, compared = kernel_phase(a.seed, int32_ops_s)
+
+    phase(PROBE_PHASE)
+    probe_launches, probe_rows = probe_phase()
 
     phase("3. main path: index + align --engine beam --device cuda")
     workdir = os.path.join(ROOT, "hsa_tpu_torch", "_build", "smoke")
@@ -1987,6 +2402,10 @@ def main():
     torch.cuda.synchronize()
     select.KERNEL.launches = 0
     select.KERNEL.launch_shapes.clear()
+    # the gather kernels are on no main path: counted from here to phase 10,
+    # less the launches that phase 4b makes to time them
+    for k in gather.KERNELS.values():
+        k.launches = 0
     lines, met = run_align(prefix, fq, workdir, "cuda", "smoke")
     launches = select.KERNEL.launches
     se_launched = dict(select.KERNEL.launch_shapes)
@@ -2024,6 +2443,19 @@ def main():
     n = cross_check(prefix, reads, lines, workdir)
     print(f"cross-check: align --device cpu on the first {n} reads gives a "
           f"SAM byte-equal to the card's ({time.perf_counter() - t0:.3f} s)")
+
+    phase("4b. the FM row gather at the main path's table; occ_probe5 on "
+          "phase 3's index")
+    t0 = time.perf_counter()
+    n0 = {name: k.launches for name, k in gather.KERNELS.items()}
+    main_table = main_table_phase(prefix, a.seed, r1s + r2s)
+    gather_timed = {name: k.launches - n0[name]
+                    for name, k in gather.KERNELS.items()}
+    from hsa_tpu_torch.tools import occ_probe5
+    print(f"python -m hsa_tpu_torch.tools.occ_probe5 --index {prefix} "
+          "--device cuda")
+    occ_probe5.main(["--index", prefix, "--device", "cuda"])
+    print(f"phase 4b took {time.perf_counter() - t0:.3f} s")
 
     phase("5. glocal_screen kernel against its plain version and the "
           "native DP")
@@ -2385,6 +2817,13 @@ def main():
         profile_pe_pigeon_phase(prefix, r1s, r2s, fq1, fq2, workdir)
         profile_pigeon_phase(prefix, reads, fq, workdir)
 
+    gather_main = {name: k.launches - gather_timed[name]
+                   for name, k in gather.KERNELS.items()}
+    print(f"gather kernel launches on the main paths (phases 3-10, less "
+          f"phase 4b's {gather_timed}): {gather_main} (expected 0 each)")
+    if any(gather_main.values()):
+        fail(f"a gather kernel launched on a main path: {gather_main}")
+
     # per beam step: the frontier select and the hit merge, one launch each;
     # the row's own times are those of align --engine beam's step, and
     # step_by_path has every path's at the widest shape it launched
@@ -2439,7 +2878,9 @@ def main():
         "bound_by": glocal[0]["bound_by"], "library_ms": None,
         "native_ms": glocal[0]["native_ms"],
         "ms_per": "one screen of all rescue jobs",
-        "shape": glocal[0]["shape"], "shapes": glocal}]}))
+        "shape": glocal[0]["shape"], "shapes": glocal},
+        *gather_rows_json(probe_launches, probe_rows, main_table,
+                          gather_main)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -209,3 +209,54 @@ def test_cli_runs_without_the_jax_package(tmp_path, tree):
            if not ln.startswith("@")]
     assert [ln.split("\t")[:4] for ln in lad] == \
         [ln.split("\t")[:4] for ln in pe]
+
+
+PROBE_SCRIPT = r"""
+import runpy, sys
+sys.argv = sys.argv[1:]
+if sys.argv[0].endswith(".occ_probe5"):
+    # its 2^20 ranks a call take minutes on the CPU: a smaller batch
+    from hsa_tpu_torch.tools import occ_probe5
+    occ_probe5.Q = 4096
+    occ_probe5.main(sys.argv[1:])
+else:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("hsa_tpu", "jax", "jaxlib"))
+assert not bad, bad
+print("ok")
+"""
+# one probe of each of the port's probe modules, with what it must print
+PROBES = [("gather_probe", ["dma"], "pallas DMA gather: "),
+          ("gather_probe2", ["rowloop"], "rowloop [1MB] Q=16K: "),
+          ("gather_probe3", ["grid"], "grid chunk=32: "),
+          ("sync_probe", ["vmemtake"], "pallas VMEM take [4MB] Q=2^17: "),
+          ("occ_probe5", [], "chained occ [full len=128]")]
+
+
+@pytest.mark.parametrize("name,args,line", PROBES,
+                         ids=[p[0] for p in PROBES])
+def test_probe_runs_without_the_jax_package(tmp_path, name, args, line):
+    """``python -m hsa_tpu_torch.tools.<name> --device cpu ...`` in a
+    directory that holds only a copy of ``hsa_tpu_torch``: it runs, its own
+    check passes, and neither ``hsa_tpu`` nor ``jax`` is loaded."""
+    cwd = tmp_path / "tree"
+    shutil.copytree(os.path.join(REPO, "hsa_tpu_torch"), cwd / "hsa_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "_build"))
+    if name == "occ_probe5":
+        from hsa_tpu_torch.pipeline import build_index
+        chrom = np.random.RandomState(5).randint(0, 4, 20_000)
+        (tmp_path / "ref.fa").write_text(
+            ">c1\n" + "".join("ACGT"[c] for c in chrom) + "\n")
+        build_index(str(tmp_path / "ref.fa"), str(tmp_path / "ref"))
+        args = args + ["--index", str(tmp_path / "ref")]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", PROBE_SCRIPT,
+                        f"hsa_tpu_torch.tools.{name}", "--device", "cpu",
+                        *args], capture_output=True, text=True, cwd=cwd,
+                       env=env, timeout=600)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), \
+        r.stderr[-3000:]
+    assert line in r.stdout and "FAILED" not in r.stdout, r.stdout
+    if name != "occ_probe5":
+        assert "correct=True" in r.stdout and "correct=False" not in r.stdout
