@@ -180,6 +180,29 @@ any result.
    the pooled beam flush must all occur, ``cuda`` against ``cpu``
    byte-equal; then select_topk against plain at every shape these flushes
    launched it at.
+10b. The sharded index (``hsa_tpu_torch.dist``): worlds of ranks on this
+   card, each rank a fresh process (``--shard-rank``, started by
+   ``dist.launch.run_world``) and one ``(data, shard)`` coordinate: ``(1,
+   1)`` over nccl (one rank per card), ``(1, 4)`` and ``(2, 2)`` over gloo
+   (four ranks sharing the card; the merge's ``all_reduce`` takes CUDA
+   tensors and stages them through host memory).  Each rank keeps its row
+   range of phase 3's index on the card and runs every ``ShardedIndex``
+   entry point on the whole inputs: ``pigeon_fn`` on phase 3's first batch
+   (16,384 reads, both strands, k = 2, phase 7a's 12-mer table replicated),
+   ``exact_fn``, ``width_fn`` and ``beam_fn`` (W=64, the CLI defaults) on
+   its first 4,096 reads, ``locate_fn`` on the ranks of the unsharded
+   pigeon search's positions, and at ``(1, 4)`` the LF walk on the repeat
+   path's genome indexed without the direct SA.  Every rank's whole result
+   must equal the port's unsharded result on the card bit for bit (pigeon
+   at two data slices: the per-lane fields exactly, the pool and gapped
+   entries as sets, the occurrences exactly); every merge must have run on
+   CUDA tensors, the ranks of a shard group must have merged alike, and
+   select_topk must have launched 2 x 107 times in each beam call.
+   Each entry point runs twice a rank (the first call in a fresh process);
+   prints per world and entry point the slowest rank's wall seconds of
+   both calls, the all-reduces and the bytes a shard of a call, and the
+   unsharded calls' warm walls; then select_topk against plain at every
+   shape the ranks launched it at.
 11. With ``--profile``, where the time goes on the warm card: each
    single-end batch's stream phases (search; readback + hits + locate;
    resolve) one after another with the device synchronised between them;
@@ -301,6 +324,18 @@ REPEAT = dict(bp=120_000, unit=300, copies=40, div=0.04, reads=1_024,
                         _PIGEON_REPEAT_THRESH=10.0,
                         _PIGEON_RETRY_CAPS=(6, 8, 4)))
 REPEAT_CLEAN_MAPPED_MIN = 0.95
+# the sharded index (phase 10b): worlds of ranks, each one process and one
+# (data, shard) coordinate on this card; pigeon at k = 2 on phase 3's first
+# batch (n_seg = k + 1) at the CLI's caps; the beam at the CLI defaults on
+# SHARD_BEAM_READS of its reads (cut from 16,384 for the run's time); the LF
+# walk on the repeat path's genome without the direct SA, at SHARD_WALK_MESH
+SHARD_WORLDS = (("nccl", 1, 1), ("gloo", 1, 4), ("gloo", 2, 2))
+SHARD_PIGEON_OPT = dict(max_diff=2)
+SHARD_N_SEG = 3
+SHARD_CAPS = dict(seg_cap=32, cand_cap=48, pool_mult=4)
+SHARD_BEAM_READS, SHARD_BEAM_W, SHARD_BEAM_H = 4_096, 64, 32
+SHARD_WALK_MESH, SHARD_WALK_RANKS = (1, 4), 4_096
+SHARD_PG_TIMEOUT_S, SHARD_WORLD_TIMEOUT_S = 60, 300
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -1988,6 +2023,331 @@ def repeat_phase(seed, workdir):
     return total
 
 
+# -- 10b. the sharded index: ShardedIndex over meshes of ranks ----------------
+def shard_inputs(prefix, reads, seed, workdir):
+    """The sharded phase's inputs, written for the ranks, and the port's
+    unsharded results on the card to hold them against.
+
+    Pigeon: phase 3's first batch, both strands, at SHARD_PIGEON_OPT with
+    phase 7a's 12-mer table; exact, width and beam: its first
+    SHARD_BEAM_READS reads at the CLI defaults; locate: the ranks of the
+    unsharded pigeon search's verified positions (inverse suffix array);
+    the LF walk: the repeat path's genome indexed without the direct SA."""
+    import torch
+    from hsa_tpu_torch.config import AlnOpt
+    from hsa_tpu_torch.index.layout import (DeviceIndex, build_device_index,
+                                            to_device, words_to_device)
+    from hsa_tpu_torch.search import fm, pigeon as pg
+    from hsa_tpu_torch.search.beam import beam_search
+    from hsa_tpu_torch.search.exact import as_wide, exact_search, pack_reads
+    from hsa_tpu_torch.search.widths import cal_width_device
+
+    idx_dir = prefix + ".hsa"
+    di = DeviceIndex.load(os.path.join(idx_dir, "index.npz"))
+    with np.load(os.path.join(idx_dir, "kmer12.npz")) as z:
+        tk_np, tl_np = z["tk"], z["tl"]
+    rows = pg.pack_text_rows(make_genome(GENOME_BP, seed))
+    opt = AlnOpt(**SHARD_PIGEON_OPT)
+    sub = reads[:BATCH]
+    both = sub + [revcomp(r) for r in sub]
+    batch = pg.pack_pigeon_batch(both, n_seg=SHARD_N_SEG,
+                                 seed_len=opt.seed_len, kmer_k=12,
+                                 anchor_tail=pg.auto_anchor_tail(di.n, 12),
+                                 device_masks=True)
+    md = np.full(len(both), opt.max_diff, np.int32)
+    beam_reads = np.stack(reads[:SHARD_BEAM_READS]).astype(np.uint8)
+    ex_reads, ex_lens = pack_reads(list(beam_reads), READ_LEN)
+    cli_opt = AlnOpt()
+    bm_lens = np.full(len(beam_reads), READ_LEN, np.int32)
+    bm_md = np.full(len(beam_reads), cli_opt.diff_budget(READ_LEN), np.int32)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = to_device(di, "cuda")
+    tk, tl = as_wide(tk_np, "cuda"), as_wide(tl_np, "cuda")
+    trows = words_to_device(rows, "cuda")
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    ref, wall = {}, {}
+
+    def warm(name, fn):
+        """fn() twice (each ends in a readback): the second call's result,
+        its wall seconds under ``name``."""
+        fn()
+        t1 = time.perf_counter()
+        r = fn()
+        wall[name] = time.perf_counter() - t1
+        return r
+
+    def pigeon():
+        buf, shape = pg.pack_pigeon_upload(batch, md)
+        (segs_rev, seg_lens, seg_off, kmer, kmer_ok, seg_short, rw, nmask,
+         lens, md_t) = pg.unpack_pigeon_upload(words_to_device(buf, "cuda"),
+                                               shape)
+        B2 = len(both)
+        return pg.result_to_host(pg.pigeon_search(
+            dev, trows, segs_rev, seg_lens, seg_off, rw, nmask, None, None,
+            lens, md_t, opt, n_seg=SHARD_N_SEG,
+            cand_cap=SHARD_CAPS["cand_cap"], seg_cap=SHARD_CAPS["seg_cap"],
+            pool=SHARD_CAPS["pool_mult"] * B2, gpool=B2,
+            kmer_seed=(tk, tl, kmer, kmer_ok, seg_short)))._asdict()
+
+    ref["pigeon"] = warm("pigeon_fn", pigeon)
+    v = ref["pigeon"]["valid"]
+    pos = ref["pigeon"]["pos"][v].astype(np.int64)
+    isa = np.empty(di.sa_direct.shape[0], np.int64)
+    isa[di.sa_direct] = np.arange(isa.size)
+    ranks = isa[pos]
+    del isa
+    if ranks.size % 2:
+        ranks = np.append(ranks, 0)
+    ref["exact"] = warm("exact_fn", lambda: [
+        x.cpu().numpy() for x in exact_search(
+            dev, as_wide(ex_reads, "cuda"), as_wide(ex_lens, "cuda"))])
+    fwd = as_wide(beam_reads, "cuda")
+    ref["D"] = warm("width_fn", lambda: cal_width_device(
+        dev, fwd, as_wide(bm_lens, "cuda")).cpu().numpy())
+    ref["beam"] = warm("beam_fn", lambda: {
+        f: x.cpu().numpy() for f, x in beam_search(
+            dev, fwd, as_wide(bm_lens, "cuda"), as_wide(ref["D"], "cuda"),
+            as_wide(bm_md, "cuda"), cli_opt, beam_width=SHARD_BEAM_W,
+            max_hits=SHARD_BEAM_H)._asdict().items()})
+    ref["locate"] = warm("locate_fn", lambda: fm.locate(
+        dev, as_wide(ranks, "cuda")).cpu().numpy())
+    if not np.array_equal(ref["locate"][:pos.size], pos):
+        fail("locate of the pigeon positions' ranks does not give them back")
+    del dev, tk, tl, trows, fwd
+    print(f"unsharded on the card (this process; tables on the card in "
+          f"{tables_s:.3f} s), the second of two calls: "
+          + ", ".join(f"{k} {s:.6f} s" for k, s in wall.items()))
+
+    # the LF walk: the repeat path's genome without the direct SA
+    genome = make_repeat_case(seed)[0]
+    walk = build_device_index(genome, sa_direct=False)
+    walk.save(os.path.join(workdir, "shard_walk.npz"))
+    sa = build_device_index(genome, with_reverse=False,
+                            sa_direct=True).sa_direct.astype(np.int64)
+    w_ranks = np.random.RandomState(seed + 10).randint(
+        0, walk.n + 1, SHARD_WALK_RANKS)
+    ref["walk"] = fm.locate(to_device(walk, "cuda"),
+                            as_wide(w_ranks, "cuda")).cpu().numpy()
+    if not np.array_equal(ref["walk"], sa[w_ranks]):
+        fail("the LF walk on the card differs from the suffix array")
+    np.savez(os.path.join(workdir, "shard_inputs.npz"), rows=rows, md=md,
+             ex_reads=ex_reads, ex_lens=ex_lens, bm_fwd=beam_reads,
+             bm_lens=bm_lens, bm_md=bm_md, ranks=ranks, w_ranks=w_ranks,
+             tk=tk_np, tl=tl_np, **{f"pb_{k}": v for k, v in batch.items()})
+    return ref, opt, len(both) // 2
+
+
+def shard_rank(workdir, index_npz, backend, n_data, n_shard, rank, world,
+               addr):
+    """One rank of a sharded world (``chip_smoke.py --shard-rank ...``,
+    started by :func:`shard_phase`): every ShardedIndex entry point on the
+    whole inputs, twice and timed; the whole results, the merges' count,
+    bytes and devices and select_topk's launches on the beam written to
+    ``shard_{tag}_{rank}.npz`` / ``.json``."""
+    import torch
+    import torch.distributed as dist
+    from hsa_tpu_torch.config import AlnOpt
+    from hsa_tpu_torch.dist import (COLLECTIVES, ShardedIndex, init_multihost,
+                                    make_mesh)
+    from hsa_tpu_torch.index.layout import DeviceIndex
+    from hsa_tpu_torch.kernels import select
+    from hsa_tpu_torch.search import pigeon as pg
+    from hsa_tpu_torch.search.exact import as_wide
+
+    n_data, n_shard, rank, world = map(int, (n_data, n_shard, rank, world))
+    torch.cuda.set_device(0)
+    init_multihost(addr, world, rank, backend, timeout=SHARD_PG_TIMEOUT_S)
+    mesh = make_mesh(n_data, n_shard)
+    z = dict(np.load(os.path.join(workdir, "shard_inputs.npz")))
+    batch = {k[3:]: v for k, v in z.items() if k.startswith("pb_")}
+    t0 = time.perf_counter()
+    si = ShardedIndex(DeviceIndex.load(index_npz), mesh, "cuda")
+    tk, tl = as_wide(z["tk"], "cuda"), as_wide(z["tl"], "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    out, entries = {}, []
+
+    def timed(label, fn):
+        """fn() twice, each call with the world's ranks starting together
+        (the first in a fresh process, the second warm); records (label,
+        first wall s, warm wall s, all-reduces, bytes a shard) of the
+        second call and returns its result."""
+        walls = []
+        for _ in range(2):
+            if world > 1:
+                dist.barrier()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        entries.append((label, *walls, *COLLECTIVES.calls[-1][1:]))
+        return r
+
+    COLLECTIVES.reset()
+    res = timed("pigeon_fn", lambda: pg.result_to_host(si.pigeon_fn(
+        AlnOpt(**SHARD_PIGEON_OPT), SHARD_N_SEG, z["rows"], with_kmer=True,
+        **SHARD_CAPS)(batch, z["md"], tk, tl)))
+    out.update({f"pigeon_{f}": v for f, v in res._asdict().items()})
+    out.update({f"exact_{i}": x.cpu().numpy() for i, x in enumerate(timed(
+        "exact_fn", lambda: si.exact_fn()(z["ex_reads"], z["ex_lens"])))})
+    D = timed("width_fn", lambda: si.width_fn()(z["bm_fwd"], z["bm_lens"]))
+    out["D"] = D.cpu().numpy()
+    torch.cuda.synchronize()
+    select.KERNEL.launches = 0
+    select.KERNEL.launch_shapes.clear()
+    raw = timed("beam_fn", lambda: si.beam_fn(
+        AlnOpt(), beam_width=SHARD_BEAM_W, max_hits=SHARD_BEAM_H)(
+            z["bm_fwd"], z["bm_lens"], D, z["bm_md"]))
+    launches = select.KERNEL.launches
+    shapes = [[*k, n] for k, n in select.KERNEL.launch_shapes.items()]
+    out.update({f"beam_{f}": x.cpu().numpy()
+                for f, x in raw._asdict().items()})
+    out["locate"] = timed("locate_fn", lambda: si.locate_fn()(
+        z["ranks"])).cpu().numpy()
+    if (n_data, n_shard) == SHARD_WALK_MESH:
+        sw = ShardedIndex(DeviceIndex.load(
+            os.path.join(workdir, "shard_walk.npz")), mesh, "cuda")
+        out["walk"] = timed("locate_fn (LF walk)", lambda: sw.locate_fn()(
+            z["w_ranks"])).cpu().numpy()
+    if set(COLLECTIVES.devices) != {"cuda"}:
+        raise AssertionError(f"merges ran on {dict(COLLECTIVES.devices)}, not "
+                             "on CUDA tensors only")
+    tag = f"{backend}_{n_data}x{n_shard}"
+    np.savez(os.path.join(workdir, f"shard_{tag}_{rank}.npz"), **out)
+    with open(os.path.join(workdir, f"shard_{tag}_{rank}.json"), "w") as fh:
+        json.dump(dict(backend=dist.get_backend(), setup_s=setup_s,
+                       entries=entries,
+                       merges_on=dict(COLLECTIVES.devices),
+                       select_launches=launches, select_shapes=shapes), fh)
+    dist.destroy_process_group()
+
+
+def _pool_sets(p):
+    """(slot id, pos, nmm) of the verified pool entries, and per lane the
+    (start, key) set of its gapped entries (tests/test_dist.py:139-158)."""
+    v = p["valid"]
+    pool = set(zip(p["cidx"][v].tolist(), p["pos"][v].tolist(),
+                   p["nmm"][v].tolist()))
+    gaps = {}
+    n_lanes = p["fallback"].shape[0]
+    for i in np.nonzero(p["g_read"] < n_lanes)[0]:
+        for s in np.nonzero(p["g_key"][i] != 0xFFFFFFFF)[0]:
+            gaps.setdefault(int(p["g_read"][i]), set()).add(
+                (int(p["g_q"][i, s]), int(p["g_key"][i, s])))
+    return pool, gaps
+
+
+def shard_compare(name, ref, got, n_data, opt, n_reads):
+    """Every rank's whole result against the unsharded one, bit for bit;
+    pigeon at n_data > 1 as the reference's per-slice pools allow."""
+    from hsa_tpu_torch.search import pigeon as pg
+
+    def same(what, a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or a.dtype != b.dtype or \
+                not np.array_equal(a, b):
+            fail(f"sharded {name}: {what} differs from the unsharded result "
+                 f"({a.dtype}{list(a.shape)} against "
+                 f"{b.dtype}{list(b.shape)})")
+
+    for i, x in enumerate(ref["exact"]):
+        same(f"exact_fn field {'klm'[i]}", x, got[f"exact_{i}"])
+    same("width_fn D", ref["D"], got["D"])
+    for f, x in ref["beam"].items():
+        same(f"beam_fn {f}", x, got[f"beam_{f}"])
+    same("locate_fn", ref["locate"], got["locate"])
+    if "walk" in got:
+        same("locate_fn (LF walk)", ref["walk"], got["walk"])
+    p = {f: got[f"pigeon_{f}"] for f in ref["pigeon"]}
+    if n_data == 1:
+        for f, x in ref["pigeon"].items():
+            same(f"pigeon_fn {f}", np.reshape(x, -1) if f == "n_gate" else x,
+                 p[f])
+        return
+    for f in ("fallback", "n_cand", "n_missed"):
+        same(f"pigeon_fn {f}", ref["pigeon"][f], p[f])
+    if _pool_sets(ref["pigeon"]) != _pool_sets(p):
+        fail(f"sharded {name}: pigeon_fn's pool or gapped sets differ")
+    a = pg.pigeon_occ_arrays(pg.PigeonResult(**ref["pigeon"]), n_reads, opt,
+                             SHARD_CAPS["cand_cap"])
+    b = pg.pigeon_occ_arrays(pg.PigeonResult(**p), n_reads, opt,
+                             SHARD_CAPS["cand_cap"])
+    for f in a[0]:
+        same(f"pigeon occurrences {f}", a[0][f], b[0][f])
+    same("pigeon fallback reads", a[1], b[1])
+    same("pigeon missed", a[2], b[2])
+
+
+def shard_phase(prefix, reads, seed, workdir):
+    """Phase 10b: each world of SHARD_WORLDS (ranks started as fresh
+    processes, all on this card) runs every entry point; every rank's
+    results must equal the unsharded ones.  Returns (select_topk launches
+    in the ranks, their launch shapes)."""
+    from collections import Counter
+    from hsa_tpu_torch.config import AlnOpt
+    from hsa_tpu_torch.dist.launch import run_world
+    t_phase = time.perf_counter()
+    ref, opt, n_reads = shard_inputs(prefix, reads, seed, workdir)
+    index_npz = os.path.join(prefix + ".hsa", "index.npz")
+    launches, shapes = 0, Counter()
+    cli_opt = AlnOpt()
+    n_steps = READ_LEN + cli_opt.max_gapo + cli_opt.max_gape
+    for backend, nd, ns in SHARD_WORLDS:
+        tag = f"{backend}_{nd}x{ns}"
+        t0 = time.perf_counter()
+        try:
+            run_world([sys.executable, os.path.abspath(__file__),
+                       "--shard-rank", workdir, index_npz, backend, str(nd),
+                       str(ns)], nd * ns, timeout=SHARD_WORLD_TIMEOUT_S,
+                      cwd=ROOT)
+        except RuntimeError as e:
+            fail(f"sharded world {tag}: {e}")
+        world_s = time.perf_counter() - t0
+        infos = []
+        for r in range(nd * ns):
+            with open(os.path.join(workdir, f"shard_{tag}_{r}.json")) as fh:
+                infos.append(json.load(fh))
+            got = dict(np.load(os.path.join(workdir, f"shard_{tag}_{r}.npz")))
+            shard_compare(f"{tag} rank {r}", ref, got, nd, opt, n_reads)
+            info = infos[-1]
+            if info["backend"] != backend:
+                fail(f"world {tag} ran on {info['backend']}")
+            if info["select_launches"] != 2 * 2 * n_steps:
+                fail(f"world {tag} rank {r}: select_topk launched "
+                     f"{info['select_launches']} times on two beam_fn "
+                     f"calls, expected 2 x 2 x {n_steps}")
+            launches += info["select_launches"]
+            for C, B, K, win, n in info["select_shapes"]:
+                shapes[(C, B, K, bool(win))] += n
+        # the ranks of one shard group made the same merges
+        for r, info in enumerate(infos):
+            lead = infos[r - r % ns]
+            if [e[3:] for e in info["entries"]] != \
+                    [e[3:] for e in lead["entries"]]:
+                fail(f"world {tag}: rank {r} merged otherwise than rank "
+                     f"{r - r % ns}")
+        where = ("one rank on the card, merges by NCCL on the card"
+                 if backend == "nccl" else
+                 f"{nd * ns} ranks time-sharing one card, merges through host "
+                 "memory: not a scaling figure for N hosts")
+        print(f"world {tag} ({where}): backend {infos[0]['backend']}, merges "
+              f"on {infos[0]['merges_on']}; world {world_s:.3f} s, set-up "
+              f"{max(i['setup_s'] for i in infos):.3f} s; every rank's whole "
+              f"result equals the unsharded one")
+        for j, (label, _, _, n, nbytes) in enumerate(infos[0]["entries"]):
+            first, again = (max(i["entries"][j][k] for i in infos)
+                            for k in (1, 2))
+            print(f"  {tag} {label}: wall {again:.6f} s warm, {first:.6f} s "
+                  f"first call (slowest rank), {n} all-reduces, {nbytes} "
+                  f"bytes a shard (a call of rank 0)")
+    print(f"phase 10b took {time.perf_counter() - t_phase:.3f} s")
+    return launches, dict(shapes)
+
+
 # -- 11. where the time goes (--profile) -----------------------------------------
 def profile_phase(prefix, reads, opt_dict, fq, workdir):
     import torch
@@ -2336,6 +2696,8 @@ def main():
     ap.add_argument("--probes-only", action="store_true",
                     help="only phases 1 and 2b (the gather probes' kernels); "
                          "prints their kernel rows and no result line")
+    # one rank of a phase 10b world, as shard_phase starts it
+    ap.add_argument("--shard-rank", nargs=8, help=argparse.SUPPRESS)
     a = ap.parse_args()
 
     import torch
@@ -2347,6 +2709,9 @@ def main():
         from hsa_tpu_torch.kernels import gather, select, sw
     except ImportError as e:
         fail(f"the repository is not beside this script ({e})")
+    if a.shard_rank:
+        shard_rank(*a.shard_rank)
+        return
 
     phase("1. device and build")
     int32_ops_s = device_info()
@@ -2810,6 +3175,12 @@ def main():
     by_path["repeat path (align_stream)"] = select_path_phase(
         "the repeat path", rp_launched, compared, a.seed, int32_ops_s)
 
+    phase("10b. the sharded index: ShardedIndex over (data, shard) meshes of "
+          "ranks on this card, against the unsharded search")
+    shard_select, shard_launched = shard_phase(prefix, reads, a.seed, workdir)
+    by_path["sharded beam"] = select_path_phase(
+        "sharded beam", shard_launched, compared, a.seed, int32_ops_s)
+
     if a.profile:
         phase("11. where the time goes (warm card)")
         profile_phase(prefix, reads, opt, fq, workdir)
@@ -2835,14 +3206,16 @@ def main():
         "source": "hsa_tpu_torch/csrc/select_topk.cu",
         "replaces": "hsa_tpu/kernels/select.py:51",
         "launches": launches + pe_select + pp_select + ladder_select
-        + tp_select + pg_select,
+        + tp_select + pg_select + shard_select,
         "launches_by_path": {"align": launches, "align-pe": pe_select,
                              "align-pe --engine auto": pp_select,
                              f"align --ladder {LADDER}": ladder_select,
                              "aln (x2 on phase 7a's pairs, once on phase "
                              "8's reads)": tp_aln_launches,
                              "align --engine auto": pg_select,
-                             "repeat path (align_stream)": repeat_select},
+                             "repeat path (align_stream)": repeat_select,
+                             "sharded beam (phase 10b's ranks, all worlds)":
+                             shard_select},
         "launches_per_batch": {"align": launches // len(batches),
                                "align-pe": pe_select // len(pe_batches)},
         "pigeon_fractions": fractions,

@@ -1,8 +1,8 @@
 """Batched FM-index primitives over the fused rank-indexed rows (torch).
 
-Counterpart of ``hsa_tpu/search/fm.py`` (``fm.py:55-324``, unsharded
-branches): the same rank convention, row layout and primary-slot
-correction, restated on ``int64`` tensors.
+Counterpart of ``hsa_tpu/search/fm.py`` (``fm.py:55-324``): the same rank
+convention, row layout and primary-slot correction, restated on ``int64``
+tensors.
 
 Types: every rank, count and row word is an ``int64`` holding a value in
 ``[0, 2^32)``.  The JAX code relies on uint32 semantics in three places,
@@ -15,11 +15,27 @@ engine relies on that for its dead frontier slots, which carry arbitrary
 ranks.  torch raises on the CPU and asserts on the device, so every gather
 index here is clamped to its table.  Live lanes never reach the clamp, so
 results on them are unchanged.
+
+Index sharding (``fm.py:55-76``): when the index carries a
+``shard_group`` (a rank's local tables, built by
+:class:`hsa_tpu_torch.dist.ShardedIndex`), the occ, sample and direct-SA
+tables hold one row range of the global tables, starting at
+``row_offset`` / ``rev_row_offset`` / ``sample_offset`` / ``sa_offset``.
+Every primitive then gathers the clamped local row, multiplies every
+value derived from it by the ``own`` mask (the primary-slot correction
+included: a shard that does not own the lane's block must not subtract
+it), and merges with ONE ``all_reduce(SUM)`` over the shard group: the
+owner contributes the value, every other shard zero.  A gather index is
+clamped to the *global* table first, as the unsharded gather clamps it,
+so exactly one shard owns every lane, dead ones included, and a sharded
+result equals the unsharded one bit for bit.  Unsharded indexes (no
+``shard_group``) run the code below unchanged.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 M32 = 0xFFFFFFFF
 _PAT55 = 0x55555555
@@ -37,6 +53,41 @@ def _gather_rows(blocks, b):
     """Fused rows of block ids ``b`` -> int64 [B, 8] 32-bit words."""
     b = b.clamp(0, blocks.shape[0] - 1)
     return blocks.index_select(0, b).long() & M32
+
+
+# the offset attribute of each sharded table (``hsa_tpu/dist/mesh.py:108``)
+_OFFSET = {"occ_blocks": "row_offset", "rev_occ_blocks": "rev_row_offset",
+           "samples": "sample_offset", "sa_direct": "sa_offset"}
+
+
+def _owned(idx, name, i):
+    """Global row ids ``i`` of table ``name`` -> (row ids into the table
+    the index holds, own mask [B] or None).
+
+    Unsharded: ``i`` and None.  Sharded: ``i`` clamped to the global
+    table (``idx.global_rows[name]`` rows), less the shard's offset, and
+    the lanes whose row this shard holds (``fm.py:55-71``)."""
+    if getattr(idx, "shard_group", None) is None:
+        return i, None
+    local = i.clamp(0, idx.global_rows[name] - 1) - getattr(idx, _OFFSET[name])
+    own = (local >= 0) & (local < getattr(idx, name).shape[0])
+    return local, own
+
+
+def _merge(idx, x, own):
+    """Owner-gated sum over the shard group (``fm.py:74-76``); ``x``
+    unchanged when ``own`` is None (unsharded).
+
+    ``x`` holds values in [0, 2^32) (``[B]`` or stacked ``[k, B]``); all
+    ranks but the owner contribute 0, so the sum of the 32-bit patterns
+    is exact and the merge moves ``int32``, as the reference's moves
+    uint32.  The index's ``collectives`` counter records each call."""
+    if own is None:
+        return x
+    buf = (x * own).to(torch.int32)
+    dist.all_reduce(buf, group=idx.shard_group)
+    idx.collectives.record(buf)
+    return buf.long() & M32
 
 
 def _word_masks(off):
@@ -85,18 +136,30 @@ def _sym_at(rows, off):
     return (word >> (2 * (off & 15))) & 3
 
 
-def _row_decode(idx, p, *, rev: bool = False):
-    """(rows [B, 8], b, off) for prefix lengths / ranks ``p``."""
-    blocks = idx.rev_occ_blocks if rev else idx.occ_blocks
+def _row_decode_owned(idx, p, *, rev: bool = False):
+    """(rows [B, 8], b, off, own) for prefix lengths / ranks ``p``; ``b``
+    is the global block id, ``own`` None unsharded."""
+    name = "rev_occ_blocks" if rev else "occ_blocks"
     b = p >> 5
     off = p & 31
-    return _gather_rows(blocks, b), b, off
+    local, own = _owned(idx, name, b)
+    return _gather_rows(getattr(idx, name), local), b, off, own
+
+
+def _row_decode(idx, p, *, rev: bool = False):
+    """(rows [B, 8], b, off) for prefix lengths / ranks ``p`` of an
+    unsharded index (a shard's rows are its own, unmerged)."""
+    rows, b, off, own = _row_decode_owned(idx, p, rev=rev)
+    if own is not None:
+        raise ValueError("_row_decode reads an unsharded index only")
+    return rows, b, off
 
 
 def occ_lt4_flat(idx, p):
     """Tuple of 4 [B] counts: occurrences of each base among bwt_full
-    rows [0, p), primary excluded."""
-    rows, b, off = _row_decode(idx, p)
+    rows [0, p), primary excluded.  Sharded: one merge of the stacked
+    four counts (``fm.py:162-179``)."""
+    rows, b, off, own = _row_decode_owned(idx, p)
     ms = _word_masks(off)
     corr = _primary_corr(idx, b, off, rev=False)
     outs = []
@@ -105,16 +168,18 @@ def occ_lt4_flat(idx, p):
         if a == 0:
             tot = tot - corr
         outs.append(tot)
-    return tuple(outs)
+    if own is None:
+        return tuple(outs)
+    return tuple(_merge(idx, torch.stack(outs), own).unbind(0))
 
 
 def occ_lt(idx, a, p, *, rev: bool = False):
     """[B] count of base a[B] (0..3) among bwt_full rows [0, p)."""
-    rows, b, off = _row_decode(idx, p, rev=rev)
+    rows, b, off, own = _row_decode_owned(idx, p, rev=rev)
     ms = _word_masks(off)
     corr = _primary_corr(idx, b, off, rev=rev)
-    return (_select4(rows, a) + _count_base(rows, ms, a)
-            - torch.where(a == 0, corr, 0))
+    return _merge(idx, _select4(rows, a) + _count_base(rows, ms, a)
+                  - torch.where(a == 0, corr, 0), own)
 
 
 def extend(idx, a, k, l, *, rev: bool = False):
@@ -164,23 +229,37 @@ def _take(table, i):
     return table[i.clamp(0, table.shape[0] - 1)]
 
 
+def _lookup(idx, name, i):
+    """Entries ``i`` (global ids) of the 1-D table ``name`` (samples or
+    the direct SA), merged over the shard group when sharded
+    (``fm.py:270-279, 288-298``)."""
+    local, own = _owned(idx, name, i)
+    return _merge(idx, _take(getattr(idx, name), local), own)
+
+
 def locate(idx, r):
     """Text positions (int64) of ranks r[B].
 
     With a direct suffix array this is one gather; otherwise the bounded
     LF walk of ``sa_intv`` steps (one fused-row gather per step for mark
-    and LF, plus one sample gather at each lane's mark step)."""
+    and LF, plus one sample gather at each lane's mark step).  Sharded,
+    each walk step merges ``[bit, mrank, r_next]`` in one call
+    (``fm.py:308-314``), then the sample lookup in another."""
     if idx.sa_direct is not None:
-        return _take(idx.sa_direct, r)
+        return _lookup(idx, "sa_direct", r)
     pos = torch.zeros_like(r)
     steps = torch.zeros_like(r)
     done = torch.zeros_like(r, dtype=torch.bool)
     for _ in range(idx.sa_intv):
-        rows, b, off = _row_decode(idx, r)
+        rows, b, off, own = _row_decode_owned(idx, r)
         bit, mrank = _mark_from_rows(rows, off)
         r_next = _lf_from_rows(idx, rows, b, off, r)
+        if own is not None:
+            bit, mrank, r_next = _merge(
+                idx, torch.stack([bit, mrank, r_next]), own).unbind(0)
         m = bit == 1
-        pos = torch.where(m & ~done, _take(idx.samples, mrank) + steps, pos)
+        pos = torch.where(m & ~done, _lookup(idx, "samples", mrank) + steps,
+                          pos)
         done = done | m
         r = torch.where(done, r, r_next)
         steps = torch.where(done, steps, steps + 1)

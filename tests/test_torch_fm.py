@@ -203,3 +203,119 @@ def test_locate(name):
     # and against the suffix array itself
     if di.sa_direct is not None:
         np.testing.assert_array_equal(got.numpy(), di.sa_direct[r])
+
+
+# -- the shard branches, in a world of 2 gloo processes ---------------------
+SHARD_WORKER = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from hsa_tpu_torch.dist import ShardedIndex, init_multihost, make_mesh
+from hsa_tpu_torch.index.layout import DeviceIndex
+from hsa_tpu_torch.search import fm
+
+work, names, (rank, world, addr) = sys.argv[2], sys.argv[3], sys.argv[4:7]
+torch.set_num_threads(1)
+init_multihost(addr, int(world), int(rank), "gloo", timeout=60)
+mesh = make_mesh(1, 2)
+out = {}
+for name in names.split(","):
+    z = {k: torch.from_numpy(v)
+         for k, v in np.load(f"{work}/{name}_in.npz").items()}
+    idx = ShardedIndex(DeviceIndex.load(f"{work}/{name}.npz"), mesh, "cpu").idx
+    out[f"{name}_occ_lt4_flat"] = torch.stack(fm.occ_lt4_flat(idx, z["p"]))
+    for rev in (False, True):
+        sfx = "_rev" if rev else ""
+        out[f"{name}_occ_lt{sfx}"] = fm.occ_lt(idx, z["a"], z["p"], rev=rev)
+        out[f"{name}_extend{sfx}"] = torch.stack(
+            fm.extend(idx, z["ea"], z["k"], z["l"], rev=rev))
+    try:
+        fm._row_decode(idx, z["p"])
+        refused = 0
+    except ValueError:
+        refused = 1
+    out[f"{name}_row_decode_refused"] = torch.tensor(refused)
+np.savez(f"{work}/out{rank}.npz", **{k: v.numpy() for k, v in out.items()})
+"""
+SHARD_CASES = ["direct", "edge"]
+SHARD_PRIMS = ["occ_lt4_flat", "occ_lt", "occ_lt_rev", "extend", "extend_rev"]
+
+
+def _shard_ranks(di, n_shard=2):
+    """Prefix lengths around every shard boundary of the occ rows, in and
+    around the primary's block (forward and reverse) and at the text's
+    ends."""
+    rows = -(-di.occ_blocks.shape[0] // n_shard)
+    ps = [np.arange(0, 40)]
+    for s in range(1, n_shard):
+        ps.append(np.arange(32 * s * rows - 40, 32 * s * rows + 40))
+    for prim in (di.primary, di.rev_primary):
+        ps.append(np.arange(32 * (prim >> 5) - 2, 32 * (prim >> 5) + 34))
+    ps.append(np.arange(di.n - 40, di.n + 2))
+    return np.clip(np.concatenate(ps), 0, di.n + 1).astype(np.int64)
+
+
+@pytest.fixture(scope="module")
+def shard_world(tmp_path_factory):
+    """Both ranks' shard-branch results at mesh (1, 2), with the inputs."""
+    import os
+    import sys
+
+    from hsa_tpu_torch.dist.launch import run_world
+    work = tmp_path_factory.mktemp("torch_fm_shard")
+    inputs = {}
+    for name in SHARD_CASES:
+        t, di, dj, _ = _idx(name)
+        di.save(str(work / f"{name}.npz"))
+        rs = np.random.RandomState(11)
+        p = _shard_ranks(di)
+        ks, ls = _intervals(t, di, dj, rs)
+        # intervals that straddle the boundary and the primary's block too
+        ks = np.concatenate([ks, p[:-1]])
+        ls = np.concatenate([ls, p[1:]])
+        inputs[name] = dict(p=p, a=rs.randint(0, 4, p.size), k=ks, l=ls,
+                            ea=rs.randint(0, 6, ks.size))
+        np.savez(work / f"{name}_in.npz", **inputs[name])
+    script = work / "worker.py"
+    script.write_text(SHARD_WORKER)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run_world([sys.executable, str(script), repo, str(work),
+               ",".join(SHARD_CASES)], 2, timeout=120,
+              env=dict(os.environ, OMP_NUM_THREADS="1"), cwd=repo)
+    return inputs, [dict(np.load(work / f"out{r}.npz")) for r in range(2)]
+
+
+@pytest.mark.parametrize("prim", SHARD_PRIMS)
+@pytest.mark.parametrize("name", SHARD_CASES)
+def test_shard_branches_match_unsharded(shard_world, name, prim):
+    """occ_lt4_flat, occ_lt and extend on a 2-shard index, at prefix
+    lengths around the shard boundary and the primary's block, on both
+    ranks equal to hsa_tpu's unsharded functions (a primary-slot
+    correction subtracted by the shard that does not own the block would
+    show here)."""
+    inputs, outs = shard_world
+    _, di, dj, _ = _idx(name)
+    z = inputs[name]
+    U = lambda x: jnp.asarray(x, jnp.uint32)   # noqa: E731
+    rev = prim.endswith("_rev")
+    if prim == "occ_lt4_flat":
+        want = jfm.occ_lt4_flat(dj, U(z["p"]))
+    elif prim.startswith("occ_lt"):
+        want = [jfm.occ_lt(dj, U(z["a"]), U(z["p"]), rev=rev)]
+    else:
+        want = jfm.extend(dj, U(np.minimum(z["ea"], 3)), U(z["k"]),
+                          U(z["l"]), rev=rev)
+    want = np.stack([_u32(w) for w in want])
+    for out in outs:
+        got = out[f"{name}_{prim}"].reshape(want.shape)
+        np.testing.assert_array_equal(want, got)
+
+
+@pytest.mark.parametrize("name", SHARD_CASES)
+def test_row_decode_refuses_a_shard(shard_world, name):
+    """_row_decode returns a shard's own, unmerged rows, so on a sharded
+    index it raises rather than answer."""
+    _, outs = shard_world
+    for out in outs:
+        assert out[f"{name}_row_decode_refused"] == 1
