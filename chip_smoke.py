@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card::
     python3 chip_smoke.py [--seed 1] [--profile]
     python3 chip_smoke.py --glocal-only R,L,G     # phases 1 and 5 alone
     python3 chip_smoke.py --probes-only           # phases 1 and 2b alone
+    python3 chip_smoke.py --oracle-only           # phases 1 and 12 alone
 
 It imports nothing of JAX and nothing of the JAX package: it drives the
 port through its CLI (``hsa_tpu_torch.cli``), its ``Aligner``, its kernel
@@ -222,7 +223,35 @@ any result.
    order + slots, compaction, locate, window fetch, ungapped verify, gapped
    screen: kernel launches, device busy, idle share); ``align --engine
    auto`` twice more, warm.
-12. Prints the kernel table as one JSON line (per kernel: launches on the
+12. The oracle: the port's reference path (``pipeline.oracle_align`` and
+   ``oracle_align_pe``: the numpy FM index, the branch-and-bound search on
+   the host, the list resolvers) against the card's engines, on a genome of
+   2^20 bp from ``--seed`` in two records (786,432 and 262,144 bp), indexed
+   by ``cli index``, at ``AlnOpt(max_diff=2)``.  Single end: 256 reads of
+   100 bp in rotation over clean, 1 and 2 mismatches, reverse strand, a
+   1-bp deletion, a 1-bp insertion, one N and junk, plus 2 across the
+   records' boundary, through ``Aligner(..., device="cuda")`` at
+   ``beam_width=512``: ``engine="beam"`` (every record byte-equal to the
+   oracle's; the frontier states and hits the beam dropped printed by read
+   kind) and ``"auto"`` (byte-equal but for the listed and counted records
+   that differ in XM/XO/XG alone, docs/PARITY.md deviation 13); then the
+   beam at W=1820, the widest the keys allow, which must drop nothing and
+   be byte-equal.  Paired end: 64 pairs of 100 bp ends, fragments about
+   N(300, 20), every 3rd end 1 with a mismatch, every 8th end 2 with 12
+   more substitutions (rescue), a junk end 1, a discordant pair (end 2
+   100 kbp away): ``align_pe(..., beam_width=256)`` at both engines
+   against ``oracle_align_pe(..., device="cuda")``, the same rule.
+   glocal_screen's launches from ``oracle_align_pe`` (1 or more) held
+   against plain at their shape; select_topk at every shape each route
+   launched, then the tall frontier ``[4608, 16384]`` K=512 and the edges
+   of the kernel's tall variant (W=1820's frontier and merge, every key
+   valid, fewer valid keys than K, a ragged width), each exact and timed
+   against plain and ``torch.topk`` beside its bound.  Then, printed and not
+   gated, 64 reads of phase 3's kind at the CLI defaults (``AlnOpt()``,
+   W=64) through both engines and the oracle: how many records are
+   byte-equal, and the first differing field of the others.  Prints the
+   seconds of every route and of the phase.
+13. Prints the kernel table as one JSON line (per kernel: launches on the
    main paths, max |err|, ms, plain_ms, library_ms (for select_topk those of
    one beam step of ``align --engine beam``, with every path's own step at
    the widest shape it launched under ``step_by_path`` and every compared
@@ -336,7 +365,49 @@ SHARD_CAPS = dict(seg_cap=32, cand_cap=48, pool_mult=4)
 SHARD_BEAM_READS, SHARD_BEAM_W, SHARD_BEAM_H = 4_096, 64, 32
 SHARD_WALK_MESH, SHARD_WALK_RANKS = (1, 4), 4_096
 SHARD_PG_TIMEOUT_S, SHARD_WORLD_TIMEOUT_S = 60, 300
+# the oracle phase (12): the port's host oracle against the card's engines on a
+# genome its prefix-doubling suffix array builds in seconds (fmcore.py: "good
+# to ~1e6"), in two records; the reference's parity settings (max_diff 2,
+# W=512 single end, W=256 paired; tests/test_resolve.py, tests/test_sampe.py)
+ORACLE_BP = (786_432, 262_144)
+ORACLE_READS, ORACLE_PAIRS, ORACLE_L, ORACLE_MAX_DIFF = 256, 64, 100, 2
+ORACLE_KINDS = ("clean", "1 mismatch", "2 mismatches", "reverse strand",
+                "1-bp deletion", "1-bp insertion", "one N", "junk")
+ORACLE_ISIZE, ORACLE_ISIZE_SD, ORACLE_HEAVY, ORACLE_FAR = 300, 20, 12, 100_000
+ORACLE_SE_W, ORACLE_PE_W = 512, 256
+# a beam that drops nothing on the single ends: the widest the keys allow
+# (9W < 2^14).  At W=512 the frontier of the reads with an exact hit holds
+# more than 512 states near depth log4(2^20) = 10, so that beam is held to
+# the oracle's records alone
+ORACLE_FULL_W = 1820
+ORACLE_CLI_READS, ORACLE_CLI_W = 64, 64
+# the frontier select of a beam of W=512 at a batch's 16,384 columns, and the
+# edges of the kernel's tall variant (one column a block): the widest beam the
+# keys allow (9W < 2^14: W=1820) at both selects, every key valid, fewer valid
+# keys than K in every column, a width no multiple of 32
+ORACLE_TALL = dict(C=9 * 512, B=16_384, K=512, window=True)
+ORACLE_TALL_EDGES = [
+    dict(C=9 * 1820, B=2_048, K=1820, window=True, name="edge: tall, W=1820"),
+    dict(C=5 * 1820 + 64, B=2_048, K=64, window=False,
+         name="edge: tall merge, W=1820, H=64"),
+    dict(ORACLE_TALL, B=2_048, window=False, valid=1.0,
+         name="edge: tall, every key valid"),
+    dict(ORACLE_TALL, B=2_048, valid=0.05,
+         name="edge: tall, fewer valid keys than K"),
+    dict(ORACLE_TALL, B=2_048 - 19, name="edge: tall, width no multiple of 32"),
+]
 ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+
+ORACLE_PHASE = ("12. the oracle: the card's records against the port's "
+                "branch-and-bound (oracle_align, oracle_align_pe)")
+
+
+def smoke_dir():
+    """Where the script keeps its indexes and reads (listed in .gitignore)."""
+    path = os.path.join(ROOT, "hsa_tpu_torch", "_build", "smoke")
+    os.makedirs(path, exist_ok=True)
+    return path
 
 
 def fail(msg):
@@ -2682,6 +2753,290 @@ def profile_pigeon_phase(prefix, reads, fq, workdir):
               f"{seq:.6f} s; index load {met['t_index_load_s']} s")
 
 
+# -- 12. the oracle: the card's records against the port's branch-and-bound ----
+def oracle_genome(seed, workdir):
+    """The oracle phase's genome (ORACLE_BP i.i.d. bases from the seed, as
+    two FASTA records) indexed by ``hsa_tpu_torch.cli index``, cached like
+    phase 3's.  Returns (codes, index prefix)."""
+    from hsa_tpu_torch import cli
+    genome = make_genome(sum(ORACLE_BP), seed + 12)
+    prefix = os.path.join(workdir, f"oracle_{len(genome)}_s{seed}")
+    if not os.path.exists(os.path.join(prefix + ".hsa", "text.pac")):
+        fa = prefix + ".fa"
+        s = ACGT[genome].tobytes()
+        with open(fa, "wb") as fh:
+            for name, lo, hi in (("chrA", 0, ORACLE_BP[0]),
+                                 ("chrB", ORACLE_BP[0], len(genome))):
+                fh.write(f">{name}\n".encode() + s[lo:hi] + b"\n")
+        if cli.main(["index", fa, "-p", prefix]) != 0:
+            fail("the oracle phase's index build failed")
+        os.remove(fa)
+    return genome, prefix
+
+
+def oracle_reads(genome, seed):
+    """ORACLE_READS reads of ORACLE_L bp, one kind of ORACLE_KINDS after the
+    other (indels at least 10 bases from either end, beyond the search's
+    indel_end_skip of 5), then two reads across the boundary between the
+    records."""
+    rs = np.random.RandomState(seed + 13)
+    L, reads = ORACLE_L, []
+    for j in range(ORACLE_READS):
+        kind = ORACLE_KINDS[j % len(ORACLE_KINDS)]
+        p = rs.randint(0, len(genome) - L - 2)
+        r = genome[p:p + L + 1].copy()
+        if kind == "1-bp deletion":
+            r = np.delete(r, rs.randint(10, L - 10))
+        elif kind == "1-bp insertion":
+            r = np.insert(r, rs.randint(10, L - 10), rs.randint(0, 4))
+        r = r[:L]
+        n_mm = {"1 mismatch": 1, "2 mismatches": 2}.get(kind, 0)
+        q = rs.choice(L, n_mm, replace=False)
+        r[q] = (r[q] + rs.randint(1, 4, n_mm)) % 4
+        if kind == "one N":
+            r[rs.randint(0, L)] = 4
+        elif kind == "junk":
+            r = rs.randint(0, 4, L)
+        elif kind == "reverse strand":
+            r = revcomp(r)
+        reads.append(r.astype(np.int8))
+    b = ORACLE_BP[0]
+    reads += [genome[b - off:b - off + L].copy() for off in (40, 70)]
+    return reads
+
+
+def oracle_pairs(genome, seed):
+    """ORACLE_PAIRS FR pairs of ORACLE_L bp ends inside the first record,
+    fragments about N(ORACLE_ISIZE, ORACLE_ISIZE_SD): every 3rd end 1 with
+    a mismatch, every 8th end 2 with ORACLE_HEAVY substitutions (found by
+    the rescue alone); the second to last pair's end 1 is junk, the last
+    pair's end 2 is taken ORACLE_FAR bases downstream (discordant)."""
+    rs = np.random.RandomState(seed + 14)
+    L, r1s, r2s = ORACLE_L, [], []
+    for j in range(ORACLE_PAIRS):
+        ins = int(np.clip(rs.normal(ORACLE_ISIZE, ORACLE_ISIZE_SD), 2 * L + 10,
+                          2 * ORACLE_ISIZE))
+        p = rs.randint(0, ORACLE_BP[0] - ins - ORACLE_FAR - 1)
+        r1 = genome[p:p + L].copy()
+        far = ORACLE_FAR if j == ORACLE_PAIRS - 1 else 0
+        r2 = revcomp(genome[p + far + ins - L:p + far + ins])
+        if j % 3 == 0:
+            q = rs.randint(0, L)
+            r1[q] = (r1[q] + rs.randint(1, 4)) % 4
+        if j % 8 == 0:
+            q = rs.choice(L, ORACLE_HEAVY, replace=False)
+            r2[q] = (r2[q] + rs.randint(1, 4, ORACLE_HEAVY)) % 4
+        if j == ORACLE_PAIRS - 2:
+            r1 = rs.randint(0, 4, L).astype(np.int8)
+        r1s.append(r1)
+        r2s.append(r2)
+    return r1s, r2s
+
+
+def oracle_compare(route, got, want, ties_ok):
+    """The card's SAM records (``got``) against the oracle's, byte for byte;
+    with ``ties_ok``, a record may differ in the XM/XO/XG tags alone
+    (docs/PARITY.md deviation 13, the rule of ``engine_compare``): those are
+    listed and counted.  Fails on any other difference; returns the count of
+    listed records."""
+    if len(got) != len(want):
+        fail(f"{route}: {len(got)} records, the oracle {len(want)}")
+    ties, other = [], []
+    for j, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        fg, fw = g.split("\t"), w.split("\t")
+        if ties_ok and len(fg) == len(fw) and all(
+                x.startswith(TIE_TAGS) for x, y in zip(fg, fw) if x != y):
+            ties.append(j)
+        else:
+            other.append(j)
+    for j in ties:
+        print(f"  listed (deviation 13): {got[j]}\n      the oracle's: {want[j]}")
+    print(f"{route}: {len(got) - len(ties) - len(other)} of {len(got)} "
+          f"records byte-equal to the oracle's, {len(ties)} listed "
+          f"(deviation 13: XM/XO/XG on an exact score tie at one position), "
+          f"{len(other)} differ otherwise")
+    if other:
+        j = other[0]
+        fail(f"{route}: {len(other)} records differ from the oracle's, first "
+             f"record {j}:\n  card:   {got[j]}\n  oracle: {want[j]}")
+    return len(ties)
+
+
+def first_field(a, b):
+    """Name of the first SAM field (or tag) where two records differ."""
+    fa, fb = a.split("\t"), b.split("\t")
+    names = ("QNAME", "FLAG", "RNAME", "POS", "MAPQ", "CIGAR", "RNEXT",
+             "PNEXT", "TLEN", "SEQ", "QUAL")
+    for i in range(max(len(fa), len(fb))):
+        x, y = fa[i] if i < len(fa) else "", fb[i] if i < len(fb) else ""
+        if x != y:
+            return names[i] if i < len(names) else (x or y)[:2]
+    return None
+
+
+def oracle_phase(seed, workdir, int32_ops_s, compared):
+    """Phase 12: the card's engines held against the port's oracle
+    (``pipeline.oracle_align``/``oracle_align_pe``: fmcore + the
+    branch-and-bound search on the host, the list resolvers, the mate
+    rescue's screen on the card).  Returns (select_topk launches by route,
+    glocal_screen launches by route, select step rows by route, glocal rows).
+    """
+    import torch
+    from hsa_tpu_torch.config import AlnOpt
+    from hsa_tpu_torch.kernels import select, sw
+    from hsa_tpu_torch.pipeline import Aligner, oracle_align, oracle_align_pe
+    t_phase = time.perf_counter()
+    genome, prefix = oracle_genome(seed, workdir)
+    reads = oracle_reads(genome, seed)
+    r1s, r2s = oracle_pairs(genome, seed)
+    meta = _oracle_meta(prefix)
+    opt = AlnOpt(max_diff=ORACLE_MAX_DIFF)
+    names = [f"r{j}" for j in range(len(reads))]
+    quals = ["I" * len(r) for r in reads]
+    pnames = [f"p{j}" for j in range(len(r1s))]
+    pquals = ["I" * ORACLE_L] * len(r1s)
+    print(f"genome of {len(genome)} bp in two records {ORACLE_BP}, "
+          f"{len(reads)} reads ({ORACLE_READS} in rotation over "
+          f"{ORACLE_KINDS} + 2 across the records' boundary), {len(r1s)} "
+          f"pairs; AlnOpt(max_diff={ORACLE_MAX_DIFF})")
+
+    def card(fn):
+        """Runs ``fn`` with both kernels' counts set to 0 just before;
+        returns (result, seconds, select launches, their shapes, glocal
+        launches, their shapes)."""
+        torch.cuda.synchronize()
+        for k in (select.KERNEL, sw.KERNEL):
+            k.launches = 0
+            k.launch_shapes.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (out, secs, select.KERNEL.launches,
+                dict(select.KERNEL.launch_shapes), sw.KERNEL.launches,
+                sorted(sw.KERNEL.launch_shapes))
+
+    t0 = time.perf_counter()
+    want = [r.to_sam() for r in oracle_align(
+        genome, meta, reads, names, quals, opt)]
+    se_oracle_s = time.perf_counter() - t0
+    print(f"oracle_align: {len(reads)} reads in {se_oracle_s:.3f} s "
+          f"({se_oracle_s / len(reads):.6f} s a read, both FM builds "
+          f"included)")
+    kinds = [ORACLE_KINDS[j % len(ORACLE_KINDS)]
+             for j in range(ORACLE_READS)] + ["across the boundary"] * 2
+    sel, glo, rows = {}, {}, {}
+    for engine, W in (("beam", ORACLE_SE_W), ("auto", ORACLE_SE_W),
+                      ("beam", ORACLE_FULL_W)):
+        route = f"oracle phase: align --engine {engine} -W {W}"
+        al = Aligner(prefix, opt, engine=engine, device="cuda")
+        recs, secs, n_sel, shapes, n_glo, _ = card(lambda: al.align(
+            reads, names, quals, beam_width=W))
+        print(f"{route}: {len(reads)} reads in {secs:.3f} s on the card "
+              f"({secs / len(reads):.6f} s a read, first run); select_topk "
+              f"launches {n_sel}")
+        if engine == "beam":
+            ld, hd = (np.asarray(x, np.int64).reshape(-1, len(reads)).sum(0)
+                      for x in al.last_overflow)    # both strands' lanes
+            by_kind = {k: [int(v[[x == k for x in kinds]].sum())
+                           for v in (ld > 0, ld, hd > 0)]
+                       for k in dict.fromkeys(kinds)}
+            print(f"{route}: the beam dropped {int(ld.sum())} frontier states "
+                  f"on {int((ld > 0).sum())} reads and {int(hd.sum())} hits; "
+                  f"by kind [reads, states, reads that dropped hits] "
+                  f"{json.dumps(by_kind)}")
+            if W == ORACLE_FULL_W and (ld.any() or hd.any()):
+                fail(f"{route}: the beam dropped states or hits")
+            if n_sel == 0:
+                fail(f"{route}: select_topk was launched no time")
+        oracle_compare(route, [r.to_sam() for r in recs], want,
+                       ties_ok=engine == "auto")
+        sel[route] = n_sel
+        if n_sel:
+            rows[route] = select_path_phase(route, shapes, compared, seed,
+                                            int32_ops_s)
+
+    (orecs, pe_oracle_s, n_sel, _, n_glo, glo_shapes) = card(
+        lambda: oracle_align_pe(
+            genome, meta, r1s, r2s, pnames, pquals, pquals,
+            opt, device="cuda"))
+    want_pe = [r.to_sam() for r in orecs]
+    print(f"oracle_align_pe: {len(r1s)} pairs in {pe_oracle_s:.3f} s "
+          f"({pe_oracle_s / len(r1s):.6f} s a pair, both FM builds "
+          f"included); glocal_screen launches {n_glo} at {glo_shapes}; "
+          f"select_topk launches {n_sel} (expected 0); rescued mates "
+          f"{sum('XT:Z:M' in l for l in want_pe)}")
+    if n_glo == 0 or n_sel:
+        fail(f"oracle_align_pe launched glocal_screen {n_glo} times (expected "
+             f"1 or more) and select_topk {n_sel} times (expected 0)")
+    glo["oracle_align_pe"] = n_glo
+    glocal_rows = [glocal_main_path_phase(seed, glo_shapes, int32_ops_s,
+                                          path="oracle_align_pe")]
+    for engine in ("beam", "auto"):
+        route = f"oracle phase: align-pe --engine {engine} -W {ORACLE_PE_W}"
+        al = Aligner(prefix, opt, engine=engine, device="cuda")
+        recs, secs, n_sel, shapes, n_glo, _ = card(lambda: al.align_pe(
+            r1s, r2s, pnames, pquals, pquals, beam_width=ORACLE_PE_W))
+        ld, hd = (np.asarray(x, np.int64) for x in al.last_overflow)
+        print(f"{route}: {len(r1s)} pairs in {secs:.3f} s on the card; "
+              f"select_topk launches {n_sel}, glocal_screen {n_glo}; the beam "
+              f"dropped {int(ld.sum())} frontier states on {int((ld > 0).sum())}"
+              f" lanes and {int(hd.sum())} hits")
+        oracle_compare(route, [r.to_sam() for r in recs], want_pe,
+                       ties_ok=engine == "auto")
+        sel[route], glo[route] = n_sel, n_glo
+        if n_sel:
+            rows[route] = select_path_phase(route, shapes, compared, seed,
+                                            int32_ops_s)
+
+    rs = np.random.RandomState(seed + 15)
+    for case in [dict(ORACLE_TALL, name="tall frontier: W=512 at 16,384 "
+                                         "columns"), *ORACLE_TALL_EDGES]:
+        compared[select_key(case)] = select_compare(case, rs, int32_ops_s)
+
+    # the CLI's defaults: printed, not gated (a beam of 64 is lossy by design)
+    cli_reads, _ = make_reads(genome, ORACLE_CLI_READS, seed + 16)
+    cnames = [f"r{j}" for j in range(len(cli_reads))]
+    cquals = ["I" * len(r) for r in cli_reads]
+    t0 = time.perf_counter()
+    cwant = [r.to_sam() for r in oracle_align(
+        genome, meta, cli_reads, cnames, cquals, AlnOpt())]
+    cli_oracle_s = time.perf_counter() - t0
+    print(f"oracle_align at the CLI defaults (AlnOpt()): "
+          f"{len(cli_reads)} reads in {cli_oracle_s:.3f} s "
+          f"({cli_oracle_s / len(cli_reads):.6f} s a read)")
+    for engine in ("beam", "auto"):
+        route = f"oracle phase: CLI defaults, --engine {engine} -W {ORACLE_CLI_W}"
+        al = Aligner(prefix, AlnOpt(), engine=engine, device="cuda")
+        recs, secs, n_sel, shapes, _, _ = card(lambda: al.align(
+            cli_reads, cnames, cquals, beam_width=ORACLE_CLI_W))
+        got = [r.to_sam() for r in recs]
+        diff = {}
+        for g, w in zip(got, cwant):
+            if g != w:
+                f = first_field(g, w)
+                diff[f] = diff.get(f, 0) + 1
+        print(f"{route}: {sum(g == w for g, w in zip(got, cwant))} of "
+              f"{len(got)} records byte-equal to the oracle's; the others by "
+              f"first differing field {json.dumps(diff)} (not gated); "
+              f"{secs:.3f} s on the card, select_topk launches {n_sel}")
+        sel[route] = n_sel
+        if n_sel:
+            rows[route] = select_path_phase(route, shapes, compared, seed,
+                                            int32_ops_s)
+    print(f"phase 12 took {time.perf_counter() - t_phase:.3f} s")
+    return sel, glo, rows, glocal_rows
+
+
+def _oracle_meta(prefix):
+    """The index directory's RefMeta (the records' names and bounds)."""
+    from hsa_tpu_torch.io.fastx import RefMeta
+    with open(os.path.join(prefix + ".hsa", "meta.json")) as fh:
+        return RefMeta.from_dict(json.load(fh)["ref"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2696,6 +3051,9 @@ def main():
     ap.add_argument("--probes-only", action="store_true",
                     help="only phases 1 and 2b (the gather probes' kernels); "
                          "prints their kernel rows and no result line")
+    ap.add_argument("--oracle-only", action="store_true",
+                    help="only phases 1 and 12 (the card's records against "
+                         "the oracle); prints no result line")
     # one rank of a phase 10b world, as shard_phase starts it
     ap.add_argument("--shard-rank", nargs=8, help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -2726,6 +3084,11 @@ def main():
             int32_ops_s)
         return
 
+    if a.oracle_only:
+        phase(ORACLE_PHASE)
+        oracle_phase(a.seed, smoke_dir(), int32_ops_s, {})
+        return
+
     if a.probes_only:
         phase(PROBE_PHASE)
         probe_launches, probe_rows = probe_phase()
@@ -2740,8 +3103,7 @@ def main():
     probe_launches, probe_rows = probe_phase()
 
     phase("3. main path: index + align --engine beam --device cuda")
-    workdir = os.path.join(ROOT, "hsa_tpu_torch", "_build", "smoke")
-    os.makedirs(workdir, exist_ok=True)
+    workdir = smoke_dir()
     t0 = time.perf_counter()
     genome = make_genome(GENOME_BP, a.seed)
     prefix, index_s = ensure_index(genome, a.seed, workdir)
@@ -3188,9 +3550,15 @@ def main():
         profile_pe_pigeon_phase(prefix, r1s, r2s, fq1, fq2, workdir)
         profile_pigeon_phase(prefix, reads, fq, workdir)
 
+    phase(ORACLE_PHASE)
+    or_select, or_glocal, or_rows, or_glocal_rows = oracle_phase(
+        a.seed, workdir, int32_ops_s, compared)
+    by_path.update(or_rows)
+    glocal += or_glocal_rows
+
     gather_main = {name: k.launches - gather_timed[name]
                    for name, k in gather.KERNELS.items()}
-    print(f"gather kernel launches on the main paths (phases 3-10, less "
+    print(f"gather kernel launches on the main paths (phases 3-12, less "
           f"phase 4b's {gather_timed}): {gather_main} (expected 0 each)")
     if any(gather_main.values()):
         fail(f"a gather kernel launched on a main path: {gather_main}")
@@ -3206,7 +3574,7 @@ def main():
         "source": "hsa_tpu_torch/csrc/select_topk.cu",
         "replaces": "hsa_tpu/kernels/select.py:51",
         "launches": launches + pe_select + pp_select + ladder_select
-        + tp_select + pg_select + shard_select,
+        + tp_select + pg_select + shard_select + sum(or_select.values()),
         "launches_by_path": {"align": launches, "align-pe": pe_select,
                              "align-pe --engine auto": pp_select,
                              f"align --ladder {LADDER}": ladder_select,
@@ -3215,7 +3583,7 @@ def main():
                              "align --engine auto": pg_select,
                              "repeat path (align_stream)": repeat_select,
                              "sharded beam (phase 10b's ranks, all worlds)":
-                             shard_select},
+                             shard_select, **or_select},
         "launches_per_batch": {"align": launches // len(batches),
                                "align-pe": pe_select // len(pe_batches)},
         "pigeon_fractions": fractions,
@@ -3235,10 +3603,11 @@ def main():
         "name": "glocal_screen", "route": "cuda",
         "source": "hsa_tpu_torch/csrc/glocal_screen.cu",
         "replaces": "hsa_tpu/kernels/sw.py:114",
-        "launches": pe_glocal + pp_glocal + tp_glocal,
+        "launches": pe_glocal + pp_glocal + tp_glocal
+        + sum(or_glocal.values()),
         "launches_by_path": {"align-pe": pe_glocal,
                              "align-pe --engine auto": pp_glocal,
-                             "sampe": tp_glocal},
+                             "sampe": tp_glocal, **or_glocal},
         "launches_per_batch": {"align-pe": pe_glocal // len(pe_batches),
                                "align-pe --engine auto":
                                pp_glocal // len(pp_batches),

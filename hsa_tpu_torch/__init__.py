@@ -21,6 +21,12 @@ screens the paired-end mate rescues (``kernels/sw.py``,
 ``csrc/glocal_screen.cu``).  Every function takes an explicit ``device``; on
 the CPU each kernel's plain PyTorch version runs instead, which is what the
 test suite exercises against the JAX reference.
+
+The reference path is here too (``pipeline.oracle_align``,
+``oracle_align_pe``): the numpy FM index (``fmcore``), the branch-and-bound
+search (``oracle.bnb``) and the per-read-list resolvers, the ground truth
+of record parity, which ``chip_smoke.py`` holds the card's records against
+where ``hsa_tpu`` cannot run.
 """
 
 __version__ = "0.1.0"

@@ -31,6 +31,15 @@ int rp_suffix_array64(const uint8_t* text, int64_t n, int64_t* sa_out) {
   return 0;
 }
 
+// Test hook: always use the int64 SA-IS instantiation (the production entry
+// only selects it for n+2 >= 2^31; this keeps the big-genome path covered by
+// small tests).
+int rp_suffix_array64_force(const uint8_t* text, int64_t n, int64_t* sa_out) {
+  if (n < 0) return -1;
+  refpack::suffix_array<int64_t>(text, n, sa_out);
+  return 0;
+}
+
 // Stored BWT (sentinel row removed, length n) + primary rank.
 // text codes 0..3; sa has n+1 entries.
 int rp_bwt_from_sa(const uint8_t* text, const int64_t* sa, int64_t n,

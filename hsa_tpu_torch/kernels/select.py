@@ -9,9 +9,11 @@ neighbouring columns pick different rows.  So the kernel reads the keys once: a 
 of a tile of neighbouring columns into shared memory with coalesced loads,
 one warp per column ranks them by counting smaller keys (exact, because
 keys are unique within a column), and the winners' payloads are fetched by
-their rows and written out by rows (see the source's note).  ``C`` is
-limited by the shared memory of a block: a few thousand rows, beyond which
-the launch is refused and the wrapper raises.
+their rows and written out by rows (see the source's note).  Where a tile
+of 8 columns of ``C`` keys does not fit in a block's shared memory (the
+beam's frontier above W = 355), a block of the tall variant owns one column
+and all its warps rank it; :func:`_plan` picks the variant, and it covers
+every ``(C, K)`` that the beam launches (``9W < 2^14``).
 
 Contract (the JAX function's, on int32 tensors):
 
@@ -49,16 +51,37 @@ from .build import CudaKernel
 KEY_SH = 14                      # key = score << KEY_SH | row
 SENT = 0x7FFF0000                # invalid-key sentinel
 MAX_PAY = 3
+THREADS = 512                    # a block, as in csrc/select_topk.cu
+MAX_SMEM = 232_448               # shared memory a block may ask for (227 KB)
+TILES = (16, 8, 1)               # columns a block, widest first
 
 
 def _declare(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.hsa_select_topk.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                    i, i, i, vp]
+                                    i, i, i, i, vp]
     lib.hsa_select_topk.restype = ctypes.c_int
 
 
 KERNEL = CudaKernel("select_topk.cu", _declare)
+
+
+def smem_bytes(tx: int, C: int, K: int) -> int:
+    """Shared memory of one block of the kernel (``smem_bytes`` in the
+    source): a tile of ``tx`` = 16 or 8 columns keeps each column's valid
+    keys and rows (``cap`` entries, at least C and 1 modulo 32) and a staged
+    ``[K+1, tx+1]`` output tile; the tall variant (``tx`` = 1) keeps one
+    column's list, the K kept keys with their rows and a few counters."""
+    cap = (C + 31) // 32 * 32 + 1
+    if tx == 1:
+        return 4 * (2 * cap + 2 * K + 2 * (THREADS // 32) + 2)
+    return 4 * (2 * tx * cap + (2 * K + 1) * (tx + 1) + tx)
+
+
+def _plan(C: int, K: int):
+    """Columns a block for a select of K out of C rows: the widest of
+    ``TILES`` whose shared memory fits a block, or None."""
+    return next((tx for tx in TILES if smem_bytes(tx, C, K) <= MAX_SMEM), None)
 
 
 def _check(key, payloads, K, window, drop_accum):
@@ -104,6 +127,10 @@ def select_topk_plain(key, payloads, K: int, window=None, drop_accum=None):
 
 def _select_topk_cuda(key, payloads, K, window, drop_accum):
     C, B = key.shape
+    tx = _plan(C, K)
+    if tx is None:
+        raise ValueError(f"select_topk: no kernel variant holds C={C} K={K} "
+                         f"in a block's shared memory")
     lib = KERNEL.lib()
     okeyd = torch.empty((K + 1, B), dtype=torch.int32, device=key.device)
     pouts = tuple(torch.empty((K, B), dtype=torch.int32, device=key.device)
@@ -118,7 +145,7 @@ def _select_topk_cuda(key, payloads, K, window, drop_accum):
             key.data_ptr(), len(payloads), *pin, *pout,
             window.data_ptr() if window is not None else None,
             drop_accum.data_ptr() if drop_accum is not None else None,
-            okeyd.data_ptr(), C, B, K, stream)
+            okeyd.data_ptr(), C, B, K, tx, stream)
     if err:
         raise RuntimeError(f"select_topk kernel launch failed: CUDA error {err} "
                            f"at C={C} B={B} K={K}")

@@ -27,17 +27,22 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 import torch
 
 from . import alphabet, refpack
 from .config import AlnOpt, PEOpt, SamseOpt
+from .fmcore import FMIndex
 from .index.layout import (DeviceIndex, build_device_index, to_device,
                            words_to_device)
 from .io.fastx import RefMeta, load_reference
-from .resolve.sampe import _rescue_batch, resolve_pe_from_occ_arrays
-from .resolve.samse import collect_occurrences, resolve_from_occ_arrays
+from .oracle.bnb import align_read
+from .resolve.sampe import (_rescue_batch, resolve_batch_pe,
+                            resolve_pe_from_occ_arrays)
+from .resolve.samse import (collect_occurrences, resolve_batch_se,
+                            resolve_from_occ_arrays)
 from .search import fm
 from .search import pigeon as pg
 from .search.adaptive import finalize_any
@@ -1241,3 +1246,52 @@ def _pipelined(batches, search, finish):
             yield finish(b, fut.result())
     finally:
         ex.shutdown(wait=True)
+
+
+def _oracle_search(text, opt, *read_sets):
+    """The oracle's search: ``text``'s forward and reverse FM indexes
+    (:class:`~hsa_tpu_torch.fmcore.FMIndex`), then both strands of every
+    read of each set by :func:`~hsa_tpu_torch.oracle.bnb.align_read`.
+    Returns the ``(hits_fwd, hits_rc)`` of each set and a ``locate_fn``."""
+    fm_f = FMIndex.build(np.asarray(text, np.int8))
+    fm_r = FMIndex.build(np.asarray(text, np.int8)[::-1].copy())
+
+    def side(reads):
+        hf, hr = [], []
+        for r in reads:
+            hf.append(align_read(fm_f, fm_r, np.asarray(r, np.int8), opt))
+            hr.append(align_read(fm_f, fm_r,
+                                 alphabet.revcomp(np.asarray(r, np.int8)), opt))
+        return hf, hr
+
+    def locate_fn(ranks):
+        return np.array([fm_f.locate(int(r)) for r in ranks], dtype=np.int64)
+
+    return [side(reads) for reads in read_sets], locate_fn
+
+
+def oracle_align_pe(text, meta, reads1, reads2, names, quals1, quals2, opt,
+                    peopt=None, read_offset=0, device="cuda"):
+    """Reference-path paired alignment: oracle search + shared resolution.
+
+    Ground truth for end-to-end PE record parity (SURVEY.md §4.1): the
+    branch-and-bound search on the host, then the list resolver, whose mate
+    rescue screens on ``device`` (:func:`_rescue_batch`; ``"cpu"`` runs the
+    screen's plain version).
+    """
+    (h1, h2), locate_fn = _oracle_search(text, opt, reads1, reads2)
+    return resolve_batch_pe(text, meta, reads1, reads2, names, quals1,
+                            quals2, h1, h2, locate_fn, opt, peopt,
+                            read_offset=read_offset,
+                            rescue=partial(_rescue_batch, device=device))
+
+
+def oracle_align(text, meta, reads, names, quals, opt, sopt=None, read_offset=0):
+    """Reference-path alignment: oracle search + the same resolution layer.
+
+    Ground truth for end-to-end record parity (SURVEY.md §4.1); host work
+    only.
+    """
+    ((hf, hr),), locate_fn = _oracle_search(text, opt, reads)
+    return resolve_batch_se(text, meta, reads, names, quals, hf, hr,
+                            locate_fn, opt, sopt, read_offset=read_offset)

@@ -94,6 +94,8 @@ def _declare(lib):
     lib.rp_version.restype = ctypes.c_int
     lib.rp_suffix_array64.argtypes = [u8p, ctypes.c_int64, i64p]
     lib.rp_suffix_array64.restype = ctypes.c_int
+    lib.rp_suffix_array64_force.argtypes = [u8p, ctypes.c_int64, i64p]
+    lib.rp_suffix_array64_force.restype = ctypes.c_int
     lib.rp_build.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
                              i64p, u8p, i64p, u8p, i64p, i64p]
     lib.rp_build.restype = ctypes.c_int
@@ -164,6 +166,18 @@ def suffix_array(text: np.ndarray) -> np.ndarray:
     rc = lib.rp_suffix_array64(_u8(t), len(t), _i64(sa))
     if rc != 0:
         raise RuntimeError(f"rp_suffix_array64 failed: {rc}")
+    return sa
+
+
+def suffix_array_force64(text: np.ndarray) -> np.ndarray:
+    """Test hook: int64 SA-IS instantiation regardless of size (the one a
+    genome over 2^31 bp takes)."""
+    lib = ensure_refpack()
+    t = np.ascontiguousarray(text, dtype=np.uint8)
+    sa = np.empty(len(t) + 1, dtype=np.int64)
+    rc = lib.rp_suffix_array64_force(_u8(t), len(t), _i64(sa))
+    if rc != 0:
+        raise RuntimeError(f"rp_suffix_array64_force failed: {rc}")
     return sa
 
 

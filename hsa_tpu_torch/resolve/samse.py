@@ -23,6 +23,7 @@ import numpy as np
 from .. import alphabet, refpack
 from ..config import AlnOpt, SamseOpt
 from .cigar import banded_global, cigar_stats, cigar_string
+from .mapq import approx_mapq, trunc_capped_mapq
 
 _HASH = 2654435761
 
@@ -71,7 +72,8 @@ def collect_occurrences(hits_fwd, hits_rc, locate_fn, max_occ: int = 512):
 
     hits_fwd/hits_rc: list (per read) of Hit lists from either engine.
     locate_fn: callable(ranks_uint32_array) -> positions array (batched).
-    Returns (occs_per_read, truncated_flags).  Semantics: the per-read
+    Returns (occs_per_read, truncated_flags).  Semantics (shared with the
+    loop reference implementation below, tested equal): the per-read
     occurrence budget ``max_occ`` is consumed across both strands in hit
     order; deduplication keeps the minimum-score hit per (pos, strand)
     with first-encountered winning ties.
@@ -129,6 +131,123 @@ def collect_occurrences(hits_fwd, hits_rc, locate_fn, max_occ: int = 512):
     return occs, truncated
 
 
+def collect_occurrences_ref(hits_fwd, hits_rc, locate_fn, max_occ: int = 512):
+    """Loop reference implementation (semantics oracle for the vectorized one)."""
+    B = len(hits_fwd)
+    ranks, owners = [], []
+    truncated = [False] * B
+    for j in range(B):
+        budget = max_occ
+        for strand, hits in ((0, hits_fwd[j]), (1, hits_rc[j])):
+            for h in hits:
+                w = h.l - h.k + 1
+                take = min(w, budget)
+                if take < w:
+                    truncated[j] = True
+                for r in range(h.k, h.k + take):
+                    ranks.append(r)
+                    owners.append((j, strand, h))
+                budget -= take
+        # NOTE: budget is shared across both strands in hit order
+    if ranks:
+        pos = np.asarray(locate_fn(np.asarray(ranks, dtype=np.uint32)))
+    else:
+        pos = np.zeros(0, np.int64)
+    occs = [dict() for _ in range(B)]
+    for (j, strand, h), p in zip(owners, pos):
+        key = (int(p), strand)
+        cur = occs[j].get(key)
+        if cur is None or cur.score > h.score:
+            occs[j][key] = Occurrence(int(p), strand, h.score, h.nmm, h.ngapo, h.ngape)
+    out = []
+    for j in range(B):
+        lst = sorted(occs[j].values(), key=lambda o: (o.score, o.strand, o.pos))
+        out.append(lst)
+    return out, truncated
+
+
+def _span_possible(meta, o: Occurrence, L: int) -> bool:
+    """Boundary filter: can the alignment fit inside one reference sequence?
+
+    The exact reference span is only known after the refinement DP, so the
+    filter uses the MINIMUM possible span (every gap op taken as an
+    insertion); ungapped hits have the exact span L.  The refinement window
+    in _make_record is clamped to the sequence end, so accepted gapped hits
+    can never produce CIGARs that cross a chromosome junction.
+    """
+    ngap = o.ngapo + o.ngape
+    min_span = L if ngap == 0 else max(L - ngap, 1)
+    return meta.span_ok(o.pos, min_span)
+
+
+def resolve_batch_se(text, meta, reads, names, quals, hits_fwd, hits_rc,
+                     locate_fn, opt: AlnOpt, sopt: SamseOpt | None = None,
+                     read_offset: int = 0, max_occ: int = 512):
+    """Resolve a batch of single-end reads into SAM records.
+
+    text: int8 concatenated genome codes; meta: RefMeta; reads: list of code
+    arrays (original 5'->3' orientation); locate_fn as in collect_occurrences.
+    ``read_offset`` keeps the deterministic tie-break stable across batches.
+    """
+    occs, truncated = collect_occurrences(hits_fwd, hits_rc, locate_fn, max_occ)
+    return resolve_from_occurrences(text, meta, reads, names, quals, occs,
+                                    truncated, opt, sopt,
+                                    read_offset=read_offset)
+
+
+def resolve_from_occurrences(text, meta, reads, names, quals, occs, truncated,
+                             opt: AlnOpt, sopt: SamseOpt | None = None,
+                             read_offset: int = 0, c2_extra=None):
+    """Core resolution over per-read Occurrence lists (position-space hit
+    sets — produced by collect_occurrences or directly by the pigeon
+    engine, whose candidates are already located).
+
+    ``c2_extra[j]`` (optional int array): candidates the search engine
+    did NOT enumerate for read j (capped repeat intervals).  They inflate
+    c2 and cap MAPQ (mapq.trunc_capped_mapq) — the conservative
+    confidence treatment of a truncated hit set.
+    """
+    sopt = sopt or SamseOpt()
+    records = []
+    for j, read in enumerate(reads):
+        L = len(read)
+        name = names[j]
+        qual = quals[j] if quals else "*"
+        seq_fwd = alphabet.decode(read)
+        lst = [o for o in occs[j] if _span_possible(meta, o, L)]
+        if not lst:
+            records.append(AlnRecord(name, 4, "*", 0, 0, "*", seq_fwd, qual))
+            continue
+        best = lst[0].score
+        window = [o for o in lst if o.score <= best + opt.s_mm]
+        c1 = min(sum(1 for o in window if o.score == best), 256)
+        extra = int(c2_extra[j]) if c2_extra is not None else 0
+        c2 = min(len(window) - c1 + min(extra, 255), 256)
+        bests = [o for o in window if o.score == best]
+        pick = bests[((read_offset + j) * _HASH) % (1 << 32) % len(bests)]
+        max_diff = opt.diff_budget(L)
+        mapq = trunc_capped_mapq(approx_mapq(c1, c2, pick.nmm, max_diff),
+                                 c2, extra)
+
+        rec = _make_record(text, meta, read, name, qual, pick, mapq, opt)
+        rec.tags["XT"] = "U" if c1 == 1 else "R"
+        rec.tags["X0"] = c1
+        if not truncated[j]:
+            rec.tags["X1"] = c2
+        # XA alternates
+        if 1 < len(window) <= sopt.n_multi + 1 or (c1 == 1 and 0 < c2 <= sopt.n_multi):
+            alts = [o for o in window if o is not pick][:sopt.n_multi]
+            parts = []
+            for o in alts:
+                arec = _make_record(text, meta, read, name, qual, o, 0, opt)
+                parts.append(f"{arec.rname},{'-' if o.strand else '+'}{arec.pos},"
+                             f"{arec.cigar},{arec.tags['NM']}")
+            if parts:
+                rec.tags["XA"] = ";".join(parts) + ";"
+        records.append(rec)
+    return records
+
+
 _DECODE_LUT = np.frombuffer(b"ACGTNN", dtype=np.uint8).copy()
 
 
@@ -142,8 +261,9 @@ def resolve_from_occ_arrays(text, meta, reads, names, quals, occ, truncated,
     :func:`hsa_tpu.search.pigeon.pigeon_occ_arrays` (or the
     ``occ_lists_to_arrays`` adapter): arrays ``rid, pos, strand, score,
     nmm, ngapo, ngape`` deduped per (rid, strand, pos) and sorted by
-    (rid, score, strand, pos).  Record-equal to ``hsa_tpu/resolve/samse.py``'s
-    resolver of the same name (tested equal); all numeric work — span filter, window/c1/c2 counting, primary pick,
+    (rid, score, strand, pos).  Record-equal to
+    :func:`resolve_from_occurrences` (the loop twin; tested equal); all
+    numeric work — span filter, window/c1/c2 counting, primary pick,
     MAPQ, ungapped NM/mismatch extraction — is numpy-vectorized, and the
     per-read Python that remains is string assembly only.
     """
@@ -160,8 +280,7 @@ def resolve_from_occ_arrays(text, meta, reads, names, quals, occ, truncated,
     ngapo = np.asarray(occ["ngapo"], np.int64)
     ngape = np.asarray(occ["ngape"], np.int64)
 
-    # span filter: can the alignment fit inside one reference sequence?
-    # (minimum possible span: every gap taken as an insertion)
+    # span filter (the vector form of _span_possible)
     if rid.size:
         ngap = ngapo + ngape
         Locc = lens[rid]
@@ -210,8 +329,7 @@ def resolve_from_occ_arrays(text, meta, reads, names, quals, occ, truncated,
         nbest = nwin = np.zeros(0, np.int64)
     c1 = np.minimum(nbest, 256)
     # c2_extra: unenumerated candidates of truncated reads inflate c2
-    # and cap MAPQ below (the vector form of ``trunc_capped_mapq`` in
-    # hsa_tpu/resolve/mapq.py)
+    # and cap MAPQ below (the loop twin applies trunc_capped_mapq)
     if c2_extra is not None and rid.size:
         x_grp = np.minimum(np.asarray(c2_extra, np.int64)[grp_rid], 255)
     else:
@@ -250,7 +368,7 @@ def resolve_from_occ_arrays(text, meta, reads, names, quals, occ, truncated,
                                           np.maximum(23 - glog, 0))))
     if x_grp is not None:
         # truncated enumeration: MAPQ cannot exceed the c2-branch value
-        # for the inflated count (trunc_capped_mapq again)
+        # for the inflated count (mapq.trunc_capped_mapq, vector form)
         mapq_grp = np.where(x_grp > 0,
                             np.minimum(mapq_grp, np.maximum(23 - glog, 0)),
                             mapq_grp)

@@ -257,6 +257,27 @@ def test_refpack_wrappers(what):
         same(trefpack.glocal_batch(*args), jrefpack.glocal_batch(*args))
 
 
+@pytest.mark.parametrize("kind", ["random", "repetitive"])
+def test_suffix_array_force64(kind):
+    """The int64 SA-IS instantiation (a genome over 2^31 bp takes it) equals
+    the int32 one that ``suffix_array`` picks at this size, the numpy prefix
+    doubling of ``fmcore`` and the reference's hook."""
+    from hsa_tpu_torch import fmcore as tfmcore
+    rs = np.random.RandomState(len(kind))
+    if kind == "random":
+        text = rs.randint(0, 4, 7001).astype(np.uint8)
+    else:
+        unit = rs.randint(0, 4, 23).astype(np.uint8)
+        text = np.concatenate([np.tile(unit, 150), np.zeros(300, np.uint8),
+                               np.tile(unit[:5], 60)])
+    got = trefpack.suffix_array_force64(text)
+    assert got.dtype == np.int64 and len(got) == len(text) + 1
+    np.testing.assert_array_equal(got, trefpack.suffix_array(text))
+    np.testing.assert_array_equal(got,
+                                  tfmcore.suffix_array(text.astype(np.int8)))
+    np.testing.assert_array_equal(got, jrefpack.suffix_array_force64(text))
+
+
 # -- references, the index and its directory ----------------------------------
 
 @pytest.fixture(scope="module")

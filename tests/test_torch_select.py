@@ -306,14 +306,92 @@ def emulate_kernel(key, pays, K, win, acc, TX, seed):
     return okey, pouts
 
 
-@pytest.mark.parametrize("TX", [16, 8])
+def emulate_tall(key, pays, K, win, acc, seed):
+    """The kernel's tall variant (one column a block, all warps on it) step
+    by step: each warp of 32 threads appends its valid keys at a base taken
+    from one shared atomic, in an arbitrary order of warps (shuffled from
+    ``seed``); above K keys the block bisects to the K-th smallest, each
+    round's count summed over the warps, and the keys at or below it are
+    appended to a second list of K entries the same way; each kept key is
+    ranked by counting smaller ones and written to row ``rank`` with its
+    payloads.  Invalid slots: SENT and payload 0."""
+    C, B = key.shape
+    threads, loads = 512, 4
+    rs = np.random.RandomState(seed)
+    okey = np.full((K + 1, B), 0xDEAD, np.int64)
+    pouts = [np.full((K, B), 0xDEAD, np.int64) for _ in pays]
+
+    def warp_append(items, out_k, out_r, cnt):
+        """items: per warp, the (key, row) its lanes keep, in lane order."""
+        for w in rs.permutation(len(items)):
+            for lane, (k, r) in enumerate(items[w]):
+                out_k[cnt + lane], out_r[cnt + lane] = k, r
+            cnt += len(items[w])
+        return cnt
+
+    for col in range(B):
+        skey = np.full(C + 32, -7, np.int64)
+        srow = np.full(C + 32, -7, np.int64)
+        n = 0
+        for c0 in range(0, C, loads * threads):
+            for u in range(loads):
+                items = []
+                for w in range(threads // 32):
+                    got = []
+                    for lane in range(32):
+                        cc = c0 + u * threads + w * 32 + lane
+                        k = int(key[cc, col]) if cc < C else SENT
+                        if k < SENT and not (win is not None and (
+                                k >> KEY_SH) > int(win[col])):
+                            got.append((k, cc))
+                    items.append(got)
+                n = warp_append(items, skey, srow, n)
+        m = min(n, K)
+        rk, rr = skey, srow
+        if n > K:
+            lo, hi = int(skey[:n].min()), int(skey[:n].max())
+            while lo < hi:
+                mid = lo + (hi - lo) // 2
+                # thread t counts entries t, t + 512, ...; summed over all
+                total = sum(int((skey[t:n:threads] <= mid).sum())
+                            for t in range(threads))
+                if total >= K:
+                    hi = mid
+                else:
+                    lo = mid + 1
+            kkey = np.full(K, -7, np.int64)
+            krow = np.full(K, -7, np.int64)
+            kept = 0
+            for i0 in range(0, n, threads):
+                items = [[(int(skey[i]), int(srow[i]))
+                          for i in range(i0 + w * 32, min(i0 + w * 32 + 32, n))
+                          if skey[i] <= lo] for w in range(threads // 32)]
+                kept = warp_append(items, kkey, krow, kept)
+            assert kept == K
+            rk, rr = kkey, krow
+        for i in range(m):
+            rank = int((rk[:m] < rk[i]).sum())
+            okey[rank, col] = rk[i]
+            for p, po in zip(pays, pouts):
+                po[rank, col] = p[rr[i], col]
+        for s in range(n, K):
+            okey[s, col] = SENT
+            for po in pouts:
+                po[s, col] = 0
+        a = int(acc.reshape(-1)[col]) if acc is not None else 0
+        okey[K, col] = (a + max(n - K, 0)) & 0xFFFFFFFF
+    return okey, pouts
+
+
+@pytest.mark.parametrize("TX", [16, 8, 1])
 @pytest.mark.parametrize("name", ["windowed", "all_valid", "ragged_width",
                                   "none_valid_in_some_columns",
                                   "n_equals_K_plus_1"])
 def test_kernel_algorithm_emulated(name, TX):
     """The kernel's compaction + rank gives the plain version's answer on
     valid slots and the drop row, and SENT / 0 elsewhere.  ``all_valid``
-    at C = 300 compacts 300 keys to K = 40 in ten passes."""
+    at C = 300 compacts 300 keys to K = 40 in ten passes.  ``TX`` = 1 is the
+    tall variant."""
     if name == "windowed":
         key, pays, win, acc = make_case(40, 40, seed=11, with_window=True,
                                         with_accum=True, n_pay=3)
@@ -325,11 +403,59 @@ def test_kernel_algorithm_emulated(name, TX):
     else:
         key, pays, win, acc, K = edge_case(name)
     okeyd, pouts, _ = run_port(key, pays, K, win, acc)
-    ek, ep = emulate_kernel(key.astype(np.int64),
-                            [p.astype(np.int64) for p in pays], K, win, acc,
-                            TX, seed=TX)
+    args = (key.astype(np.int64), [p.astype(np.int64) for p in pays], K, win,
+            acc)
+    ek, ep = (emulate_tall(*args, seed=TX) if TX == 1
+              else emulate_kernel(*args, TX, seed=TX))
     valid = okeyd[:K] < SENT
     np.testing.assert_array_equal(np.where(valid, okeyd[:K], SENT), ek[:K])
     np.testing.assert_array_equal(okeyd[K], ek[K])
     for a, b in zip(pouts, ep):
         np.testing.assert_array_equal(np.where(valid, a, 0), b)
+
+
+def test_tall_variant_emulated_at_many_rows():
+    """The tall variant over more rows than one round of loads (2,048 rows
+    a round: 512 threads x 4), with more valid keys than K, at the frontier's
+    ratio C = 9K."""
+    key, pays, win, acc = make_case(2_340, 3, seed=21, frac_valid=0.8,
+                                    with_window=True, with_accum=True)
+    K = 260
+    okeyd, pouts, _ = run_port(key, pays, K, win, acc)
+    ek, ep = emulate_tall(key.astype(np.int64),
+                          [p.astype(np.int64) for p in pays], K, win, acc,
+                          seed=5)
+    valid = okeyd[:K] < SENT
+    assert valid[:, 0].sum() == K
+    np.testing.assert_array_equal(np.where(valid, okeyd[:K], SENT), ek[:K])
+    np.testing.assert_array_equal(okeyd[K], ek[K])
+    for a, b in zip(pouts, ep):
+        np.testing.assert_array_equal(np.where(valid, a, 0), b)
+
+
+# -- the kernel's plan: which variant each beam select takes -----------------
+
+@pytest.mark.parametrize("W", [8, 64, 255, 355, 356, 512, 1024, 1820])
+@pytest.mark.parametrize("which", ["frontier", "merge"])
+def test_plan_fits_every_beam_width(W, which):
+    """The beam's frontier select ([9W, B], K = W) and hit merge ([5W + H,
+    B], K = H, H up to 64) get a variant whose shared memory fits a block at
+    every width the beam's keys allow (9W < 2^14), and the widest tile that
+    fits: 16 columns where the first kernel ran, 8 up to W = 355 at the
+    frontier, one column (the tall variant) above."""
+    assert 9 * W < 1 << KEY_SH
+    shapes = [(9 * W, W)] if which == "frontier" else \
+        [(5 * W + H, H) for H in (8, 32, 64)]
+    for C, K in shapes:
+        tx = select._plan(C, K)
+        assert tx in select.TILES
+        assert select.smem_bytes(tx, C, K) <= select.MAX_SMEM
+        wider = [t for t in select.TILES if t > tx]
+        assert all(select.smem_bytes(t, C, K) > select.MAX_SMEM for t in wider)
+    if which == "frontier":
+        assert select._plan(9 * W, W) == (16 if W <= 64 else 8 if W <= 355
+                                          else 1)
+    # the byte counts of the source's first kernel, at the widths named in
+    # its note: the frontier's tile of 8 fits up to W = 355 and not above
+    assert select.smem_bytes(8, 9 * 355, 355) == 230_492
+    assert select.smem_bytes(8, 9 * 356, 356) == 232_612
