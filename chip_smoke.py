@@ -7,6 +7,7 @@ Run from the root of a checkout, on a machine with a CUDA card::
     python3 chip_smoke.py --glocal-only R,L,G     # phases 1 and 5 alone
     python3 chip_smoke.py --probes-only           # phases 1 and 2b alone
     python3 chip_smoke.py --oracle-only           # phases 1 and 12 alone
+    python3 chip_smoke.py --api-only              # phase 1, 3's index, 10c
 
 It imports nothing of JAX and nothing of the JAX package: it drives the
 port through its CLI (``hsa_tpu_torch.cli``), its ``Aligner``, its kernel
@@ -203,7 +204,31 @@ any result.
    prints per world and entry point the slowest rank's wall seconds of
    both calls, the all-reduces and the bytes a shard of a call, and the
    unsharded calls' warm walls; then select_topk against plain at every
-   shape the ranks launched it at.
+   shape the ranks launched it at.  At ``(1, 4)`` the ranks also run phase
+   10c's four FM functions on its ranks, one merge each, equal to the
+   unsharded card.
+10c. The rest of the device API.  ``search/fm.py``'s ``occ_lt4``,
+   ``extend4``, ``bwt_char`` and ``lf`` at 131,072 ranks of phase 3's index
+   (uniform, the primary and its neighbours, both ends of the range, the
+   edges of 4,097 blocks): the card bit-equal to the same functions on the
+   CPU and to the oracle's ``FMIndex`` of the 46.7 Mbp genome, read back
+   from ``text.pac`` and built by its fields from the native suffix array
+   (forward and reverse); ``oracle_align`` with those indexes at
+   ``max_diff`` 2 on 128 reads of that genome (clean, 1 and 2 mismatches,
+   reverse strand, a 1-bp deletion) against ``Aligner(...,
+   device="cuda")``: the beam at W=1024 and W=1820 (the widest the keys
+   allow) byte-equal, the states and hits each dropped printed by read kind,
+   ``auto`` at W=1024 byte-equal but for records listed under deviation 13;
+   ``hsa_tpu_torch.entry``: the
+   step of ``entry("cuda")`` bit-equal to ``entry("cpu")``'s, its warm wall
+   and device kernels under ``torch.profiler``; ``dryrun_multichip(1)``
+   (nccl) and ``(4)`` (gloo, the ranks on this card), every rank's hits and
+   pigeon_mapped equal to the unsharded dry run's; the library's two-phase
+   API, ``search_batch_device`` then ``resolve_handle``, on phase 3's first
+   4,096 reads, ``cuda`` byte-equal to ``cpu`` (a process of its own,
+   ``--handle-cpu``, beside the rest of the phase), and, not gated, how many
+   records equal ``align --engine beam``'s; select_topk against plain at
+   every shape these routes and the dry runs' ranks launched it at.
 11. With ``--profile``, where the time goes on the warm card: each
    single-end batch's stream phases (search; readback + hits + locate;
    resolve) one after another with the device synchronised between them;
@@ -396,6 +421,24 @@ ORACLE_TALL_EDGES = [
          name="edge: tall, fewer valid keys than K"),
     dict(ORACLE_TALL, B=2_048 - 19, name="edge: tall, width no multiple of 32"),
 ]
+# the rest of the device API (phase 10c): search/fm.py's four functions on
+# API_RANKS ranks of phase 3's index (API_BLOCKS random 32-rank blocks' edges
+# among them); the oracle at phase 3's size on API_ORACLE_READS reads of
+# API_ORACLE_KINDS at max_diff 2 against the beam at API_ORACLE_W (phase 12:
+# W >= 1,024 dropped nothing at 2^20 bp; the widest the keys allow) and the
+# auto route; entry() and dryrun_multichip(n) for n in API_DRYRUNS; the
+# two-phase library API on phase 3's first API_HANDLE_READS reads, its CPU
+# side in a process of API_HANDLE_THREADS threads
+API_RANKS, API_BLOCKS = 131_072, 4_096
+API_ORACLE_READS, API_ORACLE_MAX_DIFF = 128, 2
+API_ORACLE_KINDS = ("clean", "1 mismatch", "2 mismatches", "reverse strand",
+                    "1-bp deletion")
+API_ORACLE_W = (1024, 1820)
+API_DRYRUNS = (1, 4)
+API_HANDLE_READS, API_HANDLE_THREADS = 4_096, 4
+API_PHASE = ("10c. the rest of the device API: fm.py's four functions, the "
+             "oracle at phase 3's size, entry(), dryrun_multichip, "
+             "resolve_handle")
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -2187,6 +2230,8 @@ def shard_inputs(prefix, reads, seed, workdir):
         dev, as_wide(ranks, "cuda")).cpu().numpy())
     if not np.array_equal(ref["locate"][:pos.size], pos):
         fail("locate of the pigeon positions' ranks does not give them back")
+    api_ranks, api_width = fm_api_ranks(di, seed)
+    ref["fm_api"] = fm_api(dev, api_ranks, api_width)
     del dev, tk, tl, trows, fwd
     print(f"unsharded on the card (this process; tables on the card in "
           f"{tables_s:.3f} s), the second of two calls: "
@@ -2207,6 +2252,7 @@ def shard_inputs(prefix, reads, seed, workdir):
     np.savez(os.path.join(workdir, "shard_inputs.npz"), rows=rows, md=md,
              ex_reads=ex_reads, ex_lens=ex_lens, bm_fwd=beam_reads,
              bm_lens=bm_lens, bm_md=bm_md, ranks=ranks, w_ranks=w_ranks,
+             api_ranks=api_ranks, api_width=api_width,
              tk=tk_np, tl=tl_np, **{f"pb_{k}": v for k, v in batch.items()})
     return ref, opt, len(both) // 2
 
@@ -2284,6 +2330,12 @@ def shard_rank(workdir, index_npz, backend, n_data, n_shard, rank, world,
             os.path.join(workdir, "shard_walk.npz")), mesh, "cuda")
         out["walk"] = timed("locate_fn (LF walk)", lambda: sw.locate_fn()(
             z["w_ranks"])).cpu().numpy()
+        # phase 10c's four device functions, counted as an entry point
+        def fm_api_call():
+            with COLLECTIVES.call(FM_API_LABEL):
+                return fm_api(si.idx, z["api_ranks"], z["api_width"])
+        out.update({f"fm_api_{k}": v
+                    for k, v in timed(FM_API_LABEL, fm_api_call).items()})
     if set(COLLECTIVES.devices) != {"cuda"}:
         raise AssertionError(f"merges ran on {dict(COLLECTIVES.devices)}, not "
                              "on CUDA tensors only")
@@ -2333,6 +2385,9 @@ def shard_compare(name, ref, got, n_data, opt, n_reads):
     same("locate_fn", ref["locate"], got["locate"])
     if "walk" in got:
         same("locate_fn (LF walk)", ref["walk"], got["walk"])
+    if "fm_api_lf" in got:
+        for f, x in ref["fm_api"].items():
+            same(f"fm.{f}", x, got[f"fm_api_{f}"])
     p = {f: got[f"pigeon_{f}"] for f in ref["pigeon"]}
     if n_data == 1:
         for f, x in ref["pigeon"].items():
@@ -2394,6 +2449,10 @@ def shard_phase(prefix, reads, seed, workdir):
             launches += info["select_launches"]
             for C, B, K, win, n in info["select_shapes"]:
                 shapes[(C, B, K, bool(win))] += n
+        for label, _, _, n, _ in infos[0]["entries"]:
+            if label == FM_API_LABEL and n != len(FM_API_FNS):
+                fail(f"world {tag}: the four device functions made {n} "
+                     f"merges, not one each")
         # the ranks of one shard group made the same merges
         for r, info in enumerate(infos):
             lead = infos[r - r % ns]
@@ -2417,6 +2476,342 @@ def shard_phase(prefix, reads, seed, workdir):
                   f"bytes a shard (a call of rank 0)")
     print(f"phase 10b took {time.perf_counter() - t_phase:.3f} s")
     return launches, dict(shapes)
+
+
+# -- 10c. the rest of the device API ---------------------------------------------
+FM_API_FNS = ("occ_lt4", "extend4", "bwt_char", "lf")
+FM_API_LABEL = "occ_lt4 + extend4 + bwt_char + lf"
+
+
+def fm_api_ranks(di, seed):
+    """API_RANKS prefix lengths / ranks of an index of n bases, in [0, n +
+    1]: the primary and its neighbours, both ends of the range, the first,
+    last and next slot of API_BLOCKS random 32-rank blocks and of the
+    primary's, the rest uniform; and per rank an interval width in [0, 64)
+    for extend4."""
+    n, prim = int(di.n), int(di.primary)
+    rs = np.random.RandomState(seed + 17)
+    blocks = np.append(rs.randint(1, (n + 1) // 32, API_BLOCKS), prim >> 5)
+    special = np.concatenate([
+        np.arange(prim - 40, prim + 41), np.arange(0, 64),
+        np.arange(n - 62, n + 2), (32 * blocks[:, None] + [-1, 0, 31, 32])
+        .reshape(-1)])
+    special = np.clip(special, 0, n + 1)
+    ranks = np.concatenate([special,
+                            rs.randint(0, n + 2, API_RANKS - special.size)])
+    return ranks.astype(np.int64), rs.randint(0, 64, API_RANKS)
+
+
+def fm_api(idx, ranks, width):
+    """The four device functions of ``search/fm.py`` on an index on any
+    device (a shard's too): occ_lt4 at the prefix lengths ``ranks``;
+    bwt_char and lf at the ranks clamped to n; extend4 of [r, min(r +
+    width, n)].  Returns numpy arrays by name."""
+    from hsa_tpu_torch.search import fm
+    from hsa_tpu_torch.search.exact import as_wide
+    p = as_wide(ranks, idx.device)
+    r = p.clamp(max=idx.n)
+    k4, l4 = fm.extend4(idx, r, (r + as_wide(width, idx.device)).clamp(
+        max=idx.n))
+    out = {"occ_lt4": fm.occ_lt4(idx, p), "extend4_k": k4, "extend4_l": l4,
+           "bwt_char": fm.bwt_char(idx, r), "lf": fm.lf(idx, r)}
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def read_text(prefix):
+    """The genome's codes, read back from the index's ``text.pac``."""
+    from hsa_tpu_torch import refpack
+    with open(os.path.join(prefix + ".hsa", "text.pac"), "rb") as fh:
+        n = int(np.frombuffer(fh.read(8), np.int64)[0])
+        packed = np.frombuffer(fh.read(), np.uint8)
+    return refpack.unpack_2bit(packed, n).astype(np.int8)
+
+
+def oracle_fm_index(text, sa_intv=32):
+    """The oracle's ``FMIndex`` of ``text`` built by its fields, as
+    ``FMIndex.build`` computes them, from the native suffix array
+    (``refpack.suffix_array``) in place of the prefix doubling that
+    ``FMIndex.build`` uses (``fmcore.py``: "good to ~1e6").  ``cum`` is
+    summed a base at a time, without the one-hot matrix of the build: the
+    same values in half the memory ((n + 1) x 4 x 8 bytes)."""
+    from hsa_tpu_torch import refpack
+    from hsa_tpu_torch.fmcore import FMIndex, bwt_from_sa
+    t = np.asarray(text, np.int8)
+    n = len(t)
+    sa = refpack.suffix_array(t)
+    bwt, primary = bwt_from_sa(t, sa)
+    counts = np.bincount(t, minlength=4).astype(np.int64)
+    C = np.concatenate([[1], 1 + np.cumsum(counts)])
+    cum = np.zeros((n + 1, 4), np.int64)
+    for a in range(4):
+        cum[1:, a] = np.cumsum(bwt == a)
+    marks = (sa % sa_intv) == 0
+    mark_rank = np.concatenate([[0], np.cumsum(marks)[:-1]])
+    return FMIndex(n=n, primary=primary, bwt=bwt, C=C, cum=cum,
+                   sa_intv=sa_intv, marks=marks, mark_rank=mark_rank,
+                   samples=sa[marks], sa=sa)
+
+
+def fm_api_oracle_check(ref, ranks, width, got):
+    """The four functions' results (``fm_api``) against the oracle's
+    FMIndex methods at the same ranks: occ and extend vectorised, bwt_char
+    and lf a rank at a time.  The primary's symbol, which FMIndex leaves
+    undefined, must be the dummy 0."""
+    n, prim = ref.n, ref.primary
+    r = np.minimum(ranks, n)
+    l = np.minimum(r + width, n)
+    want = {"occ_lt4": np.stack([ref.occ(a, ranks - 1) for a in range(4)], 1)}
+    ext = [ref.extend(a, r, l) for a in range(4)]
+    want["extend4_k"] = np.stack([e[0] for e in ext], 1)
+    want["extend4_l"] = np.stack([e[1] for e in ext], 1)
+    want["bwt_char"] = np.array([ref.bwt_char(int(x)) for x in r])
+    want["lf"] = np.array([ref.lf(int(x)) for x in r])
+    at = r == prim
+    if (got["bwt_char"][at] != 0).any():
+        fail("bwt_char at the primary is not the dummy 0")
+    want["bwt_char"][at] = 0
+    for k, w in want.items():
+        if not np.array_equal(w, got[k]):
+            bad = np.nonzero((w != got[k]).reshape(len(ranks), -1).any(1))[0]
+            fail(f"fm.{k} differs from the oracle's FMIndex at {bad.size} "
+                 f"ranks, first {ranks[bad[0]]}: {got[k][bad[0]]} against "
+                 f"{w[bad[0]]}")
+    return int(at.sum())
+
+
+def handle_cpu(prefix, reads_npy, out_path):
+    """``chip_smoke.py --handle-cpu ...`` (started by phase 10c): the
+    library's two-phase API, ``search_batch_device`` then
+    ``resolve_handle``, on the CPU (the plain path), beside the card's
+    work; writes the SAM records, one a line."""
+    import torch
+    from hsa_tpu_torch.pipeline import Aligner
+    torch.set_num_threads(API_HANDLE_THREADS)
+    reads = list(np.load(reads_npy).astype(np.int8))
+    al = Aligner(prefix, engine="beam", device="cpu")
+    recs = al.resolve_handle(al.search_batch_device(reads), reads,
+                             *handle_names(reads))
+    with open(out_path, "w") as fh:
+        fh.write("".join(r.to_sam() + "\n" for r in recs))
+
+
+def handle_names(reads):
+    """The names and qualities phase 3's FASTQ gives these reads."""
+    return ([f"r{j}" for j in range(len(reads))],
+            ["I" * len(r) for r in reads])
+
+
+def device_api_phase(prefix, reads, beam_lines, seed, workdir, int32_ops_s,
+                     compared):
+    """Phase 10c.  Returns (select_topk launches by route, select step rows
+    by route)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hsa_tpu_torch import entry as tentry
+    from hsa_tpu_torch.config import AlnOpt
+    from hsa_tpu_torch.index.layout import DeviceIndex, to_device
+    from hsa_tpu_torch.kernels import select
+    from hsa_tpu_torch.pipeline import Aligner, oracle_align
+    t_phase = time.perf_counter()
+    sel, rows = {}, {}
+
+    def card(fn):
+        """fn() with select_topk's count set to 0 just before: (result,
+        seconds, launches, launch shapes)."""
+        torch.cuda.synchronize()
+        select.KERNEL.launches = 0
+        select.KERNEL.launch_shapes.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0, select.KERNEL.launches,
+                dict(select.KERNEL.launch_shapes))
+
+    def path(route, n_sel, shapes, gated=True):
+        """Records a route's select_topk launches; holds the kernel against
+        plain at its shapes (a gated route must have launched it)."""
+        sel[route] = n_sel
+        if gated and n_sel == 0:
+            fail(f"{route}: select_topk was launched no time")
+        if n_sel:
+            rows[route] = select_path_phase(route, shapes, compared, seed,
+                                            int32_ops_s)
+
+    # the CPU side of the two-phase library API runs beside the rest
+    sub = reads[:API_HANDLE_READS]
+    reads_npy = os.path.join(workdir, "api_handle_reads.npy")
+    np.save(reads_npy, np.stack(sub).astype(np.uint8))
+    cpu_sam = os.path.join(workdir, "api_handle_cpu.sam")
+    t_cpu = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--handle-cpu", prefix, reads_npy, cpu_sam],
+                            cwd=ROOT)
+    try:
+        # the four FM functions: the card, the CPU, the oracle's FMIndex
+        di = DeviceIndex.load(os.path.join(prefix + ".hsa", "index.npz"))
+        ranks, width = fm_api_ranks(di, seed)
+        idx = to_device(di, "cuda")
+        fm_api(idx, ranks, width)
+        got, secs, _, _ = card(lambda: fm_api(idx, ranks, width))
+        del idx
+        plain = fm_api(to_device(di, "cpu"), ranks, width)
+        for k, v in plain.items():
+            if v.dtype != got[k].dtype or not np.array_equal(v, got[k]):
+                fail(f"fm.{k} on the card differs from the CPU's")
+        print(f"occ_lt4, extend4, bwt_char, lf at {API_RANKS} ranks of phase "
+              f"3's index ({di.n} bp, sa_direct): card = cpu bit for bit; "
+              f"the four on the card {secs:.6f} s (warm)")
+        text = read_text(prefix)
+        t0 = time.perf_counter()
+        fm_f = oracle_fm_index(text)
+        fm_r = oracle_fm_index(text[::-1].copy())
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_prim = fm_api_oracle_check(fm_f, ranks, width, plain)
+        print(f"the oracle's FMIndex of phase 3's genome by its fields "
+              f"(native suffix array; forward and reverse) in {build_s:.3f} "
+              f"s, cum {fm_f.cum.nbytes} bytes each: the card's four equal "
+              f"its occ, extend, bwt_char and lf at every rank ({n_prim} at "
+              f"the primary, symbol 0) ({time.perf_counter() - t0:.3f} s)")
+
+        # the oracle at phase 3's size against the card's engines
+        oreads = oracle_reads(text, seed + 4, API_ORACLE_READS,
+                              API_ORACLE_KINDS, boundary=None)
+        names, quals = handle_names(oreads)
+        opt = AlnOpt(max_diff=API_ORACLE_MAX_DIFF)
+        t0 = time.perf_counter()
+        want = [r.to_sam() for r in oracle_align(
+            text, _oracle_meta(prefix), oreads, names, quals, opt,
+            indexes=(fm_f, fm_r))]
+        or_s = time.perf_counter() - t0
+        del fm_f, fm_r
+        print(f"oracle_align at {len(text)} bp: {len(oreads)} reads "
+              f"({API_ORACLE_KINDS} in rotation), AlnOpt(max_diff="
+              f"{API_ORACLE_MAX_DIFF}), {or_s:.3f} s ({or_s / len(oreads):.6f}"
+              f" s a read)")
+        kinds = [API_ORACLE_KINDS[j % len(API_ORACLE_KINDS)]
+                 for j in range(len(oreads))]
+        for engine, W in [("beam", W) for W in API_ORACLE_W] + [
+                ("auto", API_ORACLE_W[0])]:
+            route = f"10c oracle: align --engine {engine} -W {W}"
+            al = Aligner(prefix, opt, engine=engine, device="cuda")
+            recs, secs, n_sel, shapes = card(lambda: al.align(
+                oreads, names, quals, beam_width=W))
+            line = (f"{route}: {len(oreads)} reads in {secs:.3f} s on the "
+                    f"card; select_topk launches {n_sel}")
+            if engine == "beam":
+                # the frontier states and hits the beam dropped, both
+                # strands' lanes summed a read, by read kind
+                ld, hd = (np.asarray(x, np.int64).reshape(-1, len(oreads))
+                          .sum(0) for x in al.last_overflow)
+                by_kind = {k: [int(v[[x == k for x in kinds]].sum())
+                               for v in (ld > 0, ld, hd > 0)]
+                           for k in API_ORACLE_KINDS}
+                line += (f"; the beam dropped {int(ld.sum())} frontier states "
+                         f"on {int((ld > 0).sum())} reads and {int(hd.sum())} "
+                         f"hits; by kind [reads, states, reads that dropped "
+                         f"hits] {json.dumps(by_kind)}")
+            print(line)
+            oracle_compare(route, [r.to_sam() for r in recs], want,
+                           ties_ok=engine == "auto")
+            path(route, n_sel, shapes, gated=engine == "beam")
+            del al
+
+        # entry(): the forward step, cuda against cpu
+        step, args = tentry.entry("cuda")
+        got = [x.cpu().numpy() for x in step(*args)]
+        cstep, cargs = tentry.entry("cpu")
+        for name, g, w in zip(("pos", "nmm", "valid", "fallback"), got,
+                              (x.numpy() for x in cstep(*cargs))):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                fail(f"entry(): the step's {name} on cuda differs from cpu")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(*args)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not kern:
+            fail("entry(): the profiler recorded no device kernel")
+        print(f"entry(): step(*example_args) on cuda equals entry(device="
+              f"'cpu') bit for bit ({int(got[2].sum())} verified of "
+              f"{got[0].shape[0]} pool entries); warm step wall {wall:.6f} "
+              f"s, {len(kern)} device kernels and copies under "
+              f"torch.profiler, device busy "
+              f"{sum(e.time_range.elapsed_us() for e in kern) / 1e6:.6f} s")
+
+        # dryrun_multichip over nccl (1 rank) and gloo (4 on this card)
+        dry_launches, dry_shapes = 0, defaultdict(int)
+        for n in API_DRYRUNS:
+            nd, ns = tentry.mesh_shape(n)
+            backend = "nccl" if torch.cuda.device_count() >= n else "gloo"
+            t0 = time.perf_counter()
+            ranks_out = tentry.dryrun_multichip(n, "cuda")
+            world_s = time.perf_counter() - t0
+            ref = tentry.dryrun_unsharded(nd, "cuda")
+            for r, rec in enumerate(ranks_out):
+                if rec["backend"] != backend or rec["mesh"] != [nd, ns]:
+                    fail(f"dryrun_multichip({n}) rank {r} ran {rec['mesh']} "
+                         f"over {rec['backend']}, not ({nd}, {ns}) over "
+                         f"{backend}")
+                if (rec["hits"], rec["pigeon_mapped"]) != \
+                        (ref["hits"], ref["pigeon_mapped"]):
+                    fail(f"dryrun_multichip({n}) rank {r}: hits "
+                         f"{rec['hits']}, pigeon_mapped "
+                         f"{rec['pigeon_mapped']}; unsharded {ref['hits']}, "
+                         f"{ref['pigeon_mapped']}")
+                if rec["select_launches"] == 0:
+                    fail(f"dryrun_multichip({n}) rank {r}: select_topk was "
+                         "launched no time")
+                dry_launches += rec["select_launches"]
+                for C, B, K, win, k in rec["select_shapes"]:
+                    dry_shapes[(C, B, K, bool(win))] += k
+            print(f"dryrun_multichip({n}) over {backend}: world {world_s:.3f} "
+                  f"s; hits {ref['hits']} and pigeon_mapped "
+                  f"{ref['pigeon_mapped']} on every rank, as unsharded; "
+                  f"select_topk {sum(r['select_launches'] for r in ranks_out)}"
+                  f" launches in the ranks")
+        path("dryrun_multichip (1 and 4 ranks)", dry_launches,
+             dict(dry_shapes))
+
+        # the two-phase library API: cuda against the CPU process
+        al = Aligner(prefix, engine="beam", device="cuda")
+        recs, secs, n_sel, shapes = card(lambda: al.resolve_handle(
+            al.search_batch_device(sub), sub, *handle_names(sub)))
+        path("search_batch_device + resolve_handle", n_sel, shapes)
+        del al
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    rc = proc.wait()
+    cpu_s = time.perf_counter() - t_cpu
+    if rc != 0:
+        fail(f"the CPU side of resolve_handle exited {rc}")
+    card_sam = [r.to_sam() for r in recs]
+    with open(cpu_sam) as fh:
+        if fh.read().split("\n")[:-1] != card_sam:
+            fail("search_batch_device + resolve_handle: the records on cuda "
+                 "differ from cpu")
+    print(f"search_batch_device + resolve_handle on phase 3's first "
+          f"{len(sub)} reads: cuda = cpu byte for byte ({secs:.3f} s on the "
+          f"card; the CPU process {cpu_s:.3f} s, beside the rest)")
+    if beam_lines is not None:
+        diff = defaultdict(int)
+        for g, w in zip(card_sam, sam_body(beam_lines)):
+            if g != w:
+                diff[first_field(g, w)] += 1
+        print(f"  against align --engine beam (the array resolver; not gated):"
+              f" {len(card_sam) - sum(diff.values())} of {len(card_sam)} "
+              f"records equal, the others by first differing field "
+              f"{json.dumps(diff)}")
+    print(f"phase 10c took {time.perf_counter() - t_phase:.3f} s")
+    return sel, rows
 
 
 # -- 11. where the time goes (--profile) -----------------------------------------
@@ -2774,15 +3169,16 @@ def oracle_genome(seed, workdir):
     return genome, prefix
 
 
-def oracle_reads(genome, seed):
-    """ORACLE_READS reads of ORACLE_L bp, one kind of ORACLE_KINDS after the
-    other (indels at least 10 bases from either end, beyond the search's
-    indel_end_skip of 5), then two reads across the boundary between the
-    records."""
+def oracle_reads(genome, seed, n=ORACLE_READS, kinds=ORACLE_KINDS,
+                 boundary=ORACLE_BP[0]):
+    """``n`` reads of ORACLE_L bp, one kind of ``kinds`` after the other
+    (indels at least 10 bases from either end, beyond the search's
+    indel_end_skip of 5), then, with ``boundary``, two reads across that
+    position (the boundary between the records)."""
     rs = np.random.RandomState(seed + 13)
     L, reads = ORACLE_L, []
-    for j in range(ORACLE_READS):
-        kind = ORACLE_KINDS[j % len(ORACLE_KINDS)]
+    for j in range(n):
+        kind = kinds[j % len(kinds)]
         p = rs.randint(0, len(genome) - L - 2)
         r = genome[p:p + L + 1].copy()
         if kind == "1-bp deletion":
@@ -2800,8 +3196,9 @@ def oracle_reads(genome, seed):
         elif kind == "reverse strand":
             r = revcomp(r)
         reads.append(r.astype(np.int8))
-    b = ORACLE_BP[0]
-    reads += [genome[b - off:b - off + L].copy() for off in (40, 70)]
+    if boundary:
+        reads += [genome[boundary - off:boundary - off + L].copy()
+                  for off in (40, 70)]
     return reads
 
 
@@ -3054,8 +3451,14 @@ def main():
     ap.add_argument("--oracle-only", action="store_true",
                     help="only phases 1 and 12 (the card's records against "
                          "the oracle); prints no result line")
+    ap.add_argument("--api-only", action="store_true",
+                    help="only phase 1, phase 3's index and reads, and phase "
+                         "10c (the rest of the device API); prints no result "
+                         "line")
     # one rank of a phase 10b world, as shard_phase starts it
     ap.add_argument("--shard-rank", nargs=8, help=argparse.SUPPRESS)
+    # phase 10c's CPU side of resolve_handle, as device_api_phase starts it
+    ap.add_argument("--handle-cpu", nargs=3, help=argparse.SUPPRESS)
     a = ap.parse_args()
 
     import torch
@@ -3069,6 +3472,9 @@ def main():
         fail(f"the repository is not beside this script ({e})")
     if a.shard_rank:
         shard_rank(*a.shard_rank)
+        return
+    if a.handle_cpu:
+        handle_cpu(*a.handle_cpu)
         return
 
     phase("1. device and build")
@@ -3087,6 +3493,19 @@ def main():
     if a.oracle_only:
         phase(ORACLE_PHASE)
         oracle_phase(a.seed, smoke_dir(), int32_ops_s, {})
+        return
+
+    if a.api_only:
+        phase(API_PHASE)
+        workdir = smoke_dir()
+        genome = make_genome(GENOME_BP, a.seed)
+        prefix, index_s = ensure_index(genome, a.seed, workdir)
+        print(f"index build seconds: "
+              f"{index_s if index_s is not None else 'cached'}")
+        reads, _ = make_reads(genome, API_HANDLE_READS, a.seed)
+        del genome
+        device_api_phase(prefix, reads, None, a.seed, workdir, int32_ops_s,
+                         {})
         return
 
     if a.probes_only:
@@ -3543,6 +3962,11 @@ def main():
     by_path["sharded beam"] = select_path_phase(
         "sharded beam", shard_launched, compared, a.seed, int32_ops_s)
 
+    phase(API_PHASE)
+    api_select, api_rows = device_api_phase(prefix, reads, lines, a.seed,
+                                            workdir, int32_ops_s, compared)
+    by_path.update(api_rows)
+
     if a.profile:
         phase("11. where the time goes (warm card)")
         profile_phase(prefix, reads, opt, fq, workdir)
@@ -3574,7 +3998,8 @@ def main():
         "source": "hsa_tpu_torch/csrc/select_topk.cu",
         "replaces": "hsa_tpu/kernels/select.py:51",
         "launches": launches + pe_select + pp_select + ladder_select
-        + tp_select + pg_select + shard_select + sum(or_select.values()),
+        + tp_select + pg_select + shard_select + sum(api_select.values())
+        + sum(or_select.values()),
         "launches_by_path": {"align": launches, "align-pe": pe_select,
                              "align-pe --engine auto": pp_select,
                              f"align --ladder {LADDER}": ladder_select,
@@ -3583,7 +4008,7 @@ def main():
                              "align --engine auto": pg_select,
                              "repeat path (align_stream)": repeat_select,
                              "sharded beam (phase 10b's ranks, all worlds)":
-                             shard_select, **or_select},
+                             shard_select, **api_select, **or_select},
         "launches_per_batch": {"align": launches // len(batches),
                                "align-pe": pe_select // len(pe_batches)},
         "pigeon_fractions": fractions,

@@ -26,7 +26,9 @@ The reference path is here too (``pipeline.oracle_align``,
 ``oracle_align_pe``): the numpy FM index (``fmcore``), the branch-and-bound
 search (``oracle.bnb``) and the per-read-list resolvers, the ground truth
 of record parity, which ``chip_smoke.py`` holds the card's records against
-where ``hsa_tpu`` cannot run.
+where ``hsa_tpu`` cannot run.  ``entry`` is the counterpart of
+``__graft_entry__.py``: one forward step of the pigeon engine, and a dry
+run over a sharded ``(data, shard)`` mesh of rank processes.
 """
 
 __version__ = "0.1.0"

@@ -566,6 +566,17 @@ class Aligner:
                               np.asarray(res.n_hits_dropped))
         return hits_all[:B], hits_all[B:]
 
+    def resolve_handle(self, handle, reads, names=None, quals=None, *,
+                       read_offset: int = 0, sopt: SamseOpt | None = None):
+        """Phase B of the two-phase flow: a handle of
+        :meth:`search_batch_device` -> list of AlnRecord, through the list
+        resolver with hits located on the device (``pipeline.py:987-994``)."""
+        names = names or [f"read{read_offset + i}" for i in range(len(reads))]
+        hf, hr = self.hits_from_device(handle)
+        return resolve_batch_se(self.text, self.meta, reads, names, quals,
+                                hf, hr, self.locate_fn, self.opt, sopt,
+                                read_offset=read_offset)
+
     def search_batch(self, reads, beam_width=None, max_hits=32, ladder=None):
         """Both-strand beam search: returns (hits_fwd, hits_rc) per read."""
         return self.hits_from_device(self.search_batch_device(
@@ -1248,13 +1259,15 @@ def _pipelined(batches, search, finish):
         ex.shutdown(wait=True)
 
 
-def _oracle_search(text, opt, *read_sets):
+def _oracle_search(text, opt, *read_sets, indexes=None):
     """The oracle's search: ``text``'s forward and reverse FM indexes
-    (:class:`~hsa_tpu_torch.fmcore.FMIndex`), then both strands of every
-    read of each set by :func:`~hsa_tpu_torch.oracle.bnb.align_read`.
-    Returns the ``(hits_fwd, hits_rc)`` of each set and a ``locate_fn``."""
-    fm_f = FMIndex.build(np.asarray(text, np.int8))
-    fm_r = FMIndex.build(np.asarray(text, np.int8)[::-1].copy())
+    (:class:`~hsa_tpu_torch.fmcore.FMIndex`; ``indexes`` when the caller
+    built them), then both strands of every read of each set by
+    :func:`~hsa_tpu_torch.oracle.bnb.align_read`.  Returns the
+    ``(hits_fwd, hits_rc)`` of each set and a ``locate_fn``."""
+    fm_f, fm_r = indexes or (
+        FMIndex.build(np.asarray(text, np.int8)),
+        FMIndex.build(np.asarray(text, np.int8)[::-1].copy()))
 
     def side(reads):
         hf, hr = [], []
@@ -1286,12 +1299,15 @@ def oracle_align_pe(text, meta, reads1, reads2, names, quals1, quals2, opt,
                             rescue=partial(_rescue_batch, device=device))
 
 
-def oracle_align(text, meta, reads, names, quals, opt, sopt=None, read_offset=0):
+def oracle_align(text, meta, reads, names, quals, opt, sopt=None, read_offset=0,
+                 *, indexes=None):
     """Reference-path alignment: oracle search + the same resolution layer.
 
     Ground truth for end-to-end record parity (SURVEY.md §4.1); host work
-    only.
+    only.  ``indexes``: the (forward, reverse) FMIndex of ``text``, for a
+    genome beyond ``FMIndex.build``'s prefix doubling (built once by the
+    caller from the native suffix array); built here when None.
     """
-    ((hf, hr),), locate_fn = _oracle_search(text, opt, reads)
+    ((hf, hr),), locate_fn = _oracle_search(text, opt, reads, indexes=indexes)
     return resolve_batch_se(text, meta, reads, names, quals, hf, hr,
                             locate_fn, opt, sopt, read_offset=read_offset)

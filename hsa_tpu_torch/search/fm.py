@@ -155,10 +155,9 @@ def _row_decode(idx, p, *, rev: bool = False):
     return rows, b, off
 
 
-def occ_lt4_flat(idx, p):
-    """Tuple of 4 [B] counts: occurrences of each base among bwt_full
-    rows [0, p), primary excluded.  Sharded: one merge of the stacked
-    four counts (``fm.py:162-179``)."""
+def _occ_lt4_rows(idx, p):
+    """(the four [B] counts of bases 0..3 among bwt_full rows [0, p), own)
+    from a shard's own rows, unmerged."""
     rows, b, off, own = _row_decode_owned(idx, p)
     ms = _word_masks(off)
     corr = _primary_corr(idx, b, off, rev=False)
@@ -168,6 +167,21 @@ def occ_lt4_flat(idx, p):
         if a == 0:
             tot = tot - corr
         outs.append(tot)
+    return outs, own
+
+
+def occ_lt4(idx, p):
+    """[B, 4] counts of each base among bwt_full rows [0, p), primary
+    excluded (``fm.py:146-159``).  Sharded: one merge of the four."""
+    outs, own = _occ_lt4_rows(idx, p)
+    return _merge(idx, torch.stack(outs), own).T
+
+
+def occ_lt4_flat(idx, p):
+    """Tuple of 4 [B] counts: occurrences of each base among bwt_full
+    rows [0, p), primary excluded.  Sharded: one merge of the stacked
+    four counts (``fm.py:162-179``)."""
+    outs, own = _occ_lt4_rows(idx, p)
     if own is None:
         return tuple(outs)
     return tuple(_merge(idx, torch.stack(outs), own).unbind(0))
@@ -194,6 +208,17 @@ def extend(idx, a, k, l, *, rev: bool = False):
     return Ca + o[:B], Ca + o[B:] - 1
 
 
+def extend4(idx, k, l):
+    """All-bases extension ``([B, 4] k', [B, 4] l')``, the ``bwt_2occ4``
+    analog (``fm.py:209-214``): ``C4 + occ_lt4(k)`` and ``C4 +
+    occ_lt4(l + 1) - 1``.  Both interval ends go through one
+    concatenated row gather, so a shard merges once a call."""
+    B = k.shape[0]
+    o = occ_lt4(idx, torch.cat([k, l + 1]))
+    C4 = idx.C[None, 0:4]
+    return C4 + o[:B], C4 + o[B:] - 1
+
+
 def extend4_flat(idx, k, l):
     """All-bases extension: two tuples of 4 [B] vectors (k'_a, l'_a).
 
@@ -206,6 +231,14 @@ def extend4_flat(idx, k, l):
     return ks, ls
 
 
+def bwt_char(idx, r):
+    """bwt_full symbol at ranks r (``fm.py:232-238``): the dummy 0 at r ==
+    primary, which callers mask.  Sharded: the owner's symbol, every other
+    shard's zeroed, in one merge."""
+    rows, _, off, own = _row_decode_owned(idx, r)
+    return _merge(idx, _sym_at(rows, off), own)
+
+
 def _lf_from_rows(idx, rows, b, off, r):
     """LF mapping decoded from already-gathered rows of ranks r."""
     c = _sym_at(rows, off)
@@ -216,6 +249,14 @@ def _lf_from_rows(idx, rows, b, off, r):
            - torch.where(c == 0, corr, 0))
     res = idx.C[c] + occ - 1
     return torch.where(r == idx.primary, 0, res)
+
+
+def lf(idx, r):
+    """LF mapping of ranks r, ``LF(primary) = 0`` (``fm.py:253-259``): one
+    row gather.  Sharded: the primary's 0 is set in the owner's value
+    (``_lf_from_rows``) before the owner mask, then one merge."""
+    rows, b, off, own = _row_decode_owned(idx, r)
+    return _merge(idx, _lf_from_rows(idx, rows, b, off, r), own)
 
 
 def _mark_from_rows(rows, off):

@@ -97,6 +97,18 @@ WORKER = textwrap.dedent("""
     mesh = make_mesh(2, 2)
     si = ShardedIndex(DeviceIndex.load(f"{work}/mh.npz"), mesh, "cpu")
     out["mh_k"], out["mh_l"], _ = si.exact_fn()(z["mh_reads"], z["mh_lens"])
+    # hsa_tpu_torch.entry's dry-run rank body on the mesh of
+    # dryrun_multichip(4)
+    from hsa_tpu_torch.entry import dryrun_rank
+    dry = dryrun_rank(make_mesh(2, 2), "cpu")
+    out.update({f"dry_{f}": np.asarray(v)
+                for f, v in dry["beam"]._asdict().items()})
+    out["dry_pos"] = dry["pos"]
+    out["dry_occ"] = np.array([(j, *vars(o).values())
+                               for j, occ in enumerate(dry["occs"])
+                               for o in occ], np.int64)
+    out["dry_counts"] = np.array([dry["reads"], dry["hits"],
+                                  dry["pigeon_mapped"]])
     np.savez(f"{work}/out{rank}.npz",
              **{k: v.numpy() if isinstance(v, torch.Tensor) else v
                 for k, v in out.items()})
@@ -203,7 +215,41 @@ def world(tmp_path_factory):
     dev2 = build_device_index(t2, with_reverse=False).as_jax()
     want["mh"] = exact_search(dev2, jnp.asarray(mh_reads),
                               jnp.asarray(mh_lens))
+    want["dry"] = jax_dryrun(2)
     return outs, want
+
+
+def jax_dryrun(n_data):
+    """__graft_entry__.dryrun_multichip's searches on hsa_tpu's unsharded
+    functions: the finalized beam, the best hits' positions and the pigeon
+    occurrences."""
+    import __graft_entry__ as jentry
+    from hsa_tpu.search.adaptive import finalize_any
+    from hsa_tpu.kernels.select import SENT
+    t, di = jentry._tiny_index(n=8_000)
+    dev = di.as_jax()
+    B = 4 * n_data
+    fwd, lens = jentry._reads(t, B, 30, seed=3)
+    opt = AlnOpt(max_diff=1)
+    fwd_j, lens_j = jnp.asarray(fwd), jnp.asarray(lens)
+    D = cal_width_device(dev, fwd_j, lens_j)
+    res = beam_search(dev, fwd_j, lens_j, D, jnp.full(B, 1, jnp.int32), opt,
+                      beam_width=32, max_hits=8)
+    ranks = jnp.where(res.hkey[0] < SENT, res.hit_k[0], 0).astype(jnp.uint32)
+    popt = AlnOpt(max_diff=2, max_gapo=1)
+    preads = [r[:42].astype(np.int8) for r in fwd]
+    both = preads + [alphabet.revcomp(r) for r in preads]
+    batch = jpg.pack_pigeon_batch(both, n_seg=3, seed_len=popt.seed_len)
+    pres = jpg.pigeon_search(
+        dev, jnp.asarray(jpg.pack_text_rows(t)), *(jnp.asarray(batch[k]) for k in (
+            "segs_rev", "seg_lens", "seg_off", "rw", "nmask", "vmask",
+            "seedmask", "lens")), jnp.full(len(both), 2, jnp.int32), popt,
+        n_seg=3, cand_cap=16)
+    occs, _, _ = jpg.pigeon_occurrences(jpg.fetch_result(pres), B, popt, 16)
+    return dict(beam=finalize_any(res, opt.s_mm), pos=jfm.locate(dev, ranks),
+                occ=np.array([(j, *vars(o).values())
+                              for j, occ in enumerate(occs) for o in occ],
+                             np.int64))
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
@@ -303,6 +349,25 @@ def test_two_rank_groups_exact_matches_multihost_reference(world):
     for out in outs:
         np.testing.assert_array_equal(_u32(want["mh"][0]), out["mh_k"])
         np.testing.assert_array_equal(_u32(want["mh"][1]), out["mh_l"])
+
+
+def test_dryrun_rank_matches_jax_unsharded(world):
+    """hsa_tpu_torch.entry.dryrun_rank on the world's (2, 2) mesh: every
+    rank's finalized beam, best-hit positions and pigeon occurrences equal
+    hsa_tpu's unsharded beam and pigeon search on the same 8,000 bp index,
+    with hits and occurrences on every read."""
+    outs, want = world
+    w = want["dry"]
+    for out in outs:
+        for f, x in w["beam"]._asdict().items():
+            np.testing.assert_array_equal(_u32(x), _u32(out[f"dry_{f}"]),
+                                          err_msg=f)
+        np.testing.assert_array_equal(_u32(w["pos"]), out["dry_pos"])
+        np.testing.assert_array_equal(w["occ"], out["dry_occ"])
+        reads, hits, mapped = out["dry_counts"]
+        assert reads == 8
+        assert hits == np.asarray(w["beam"].hit_valid).any(axis=1).sum() > 0
+        assert mapped == len(set(w["occ"][:, 0])) > 0
 
 
 # -- the launcher and the mesh's preconditions, no torch world needed -------

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 from hsa_tpu.fmcore import FMIndex
 from hsa_tpu.index.layout import build_device_index
 from hsa_tpu.search import fm as jfm
+from hsa_tpu_torch.fmcore import FMIndex as TFMIndex
 from hsa_tpu_torch.index.layout import to_device
 from hsa_tpu_torch.search import fm as tfm
 
@@ -205,6 +206,63 @@ def test_locate(name):
         np.testing.assert_array_equal(got.numpy(), di.sa_direct[r])
 
 
+# -- occ_lt4, extend4, bwt_char, lf: tests/test_device_fm.py's twins --------
+def _device_fm_case():
+    """tests/test_device_fm.py's index: 5,000 bp from seed 3, sa_intv 32."""
+    if "device_fm" not in _BUILT:
+        t = _genome(5000, 3)
+        di = build_device_index(t, sa_intv=32)
+        _BUILT["device_fm"] = (t, TFMIndex.build(t, sa_intv=32), di.as_jax(),
+                               to_device(di, "cpu"))
+    return _BUILT["device_fm"]
+
+
+@pytest.mark.parametrize("prim", ["occ_lt4", "extend4", "bwt_char", "lf"])
+def test_device_fm_twins(prim):
+    """Each of the four on test_device_fm.py's inputs, bit-equal to
+    hsa_tpu.search.fm and to the port's fmcore.FMIndex (the primary's
+    symbol only to hsa_tpu's: fmcore leaves it undefined)."""
+    t, ref, dj, dt = _device_fm_case()
+    U = lambda x: jnp.asarray(x, jnp.uint32)   # noqa: E731
+    if prim == "occ_lt4":
+        ps = np.concatenate([np.arange(0, 300), [ref.primary, ref.primary + 1,
+                                                 ref.n, ref.n + 1],
+                             np.random.RandomState(0).randint(0, ref.n + 2,
+                                                              500)])
+        got = tfm.occ_lt4(dt, _t(ps)).numpy()
+        np.testing.assert_array_equal(_u32(jfm.occ_lt4(dj, U(ps))), got)
+        want = np.stack([ref.occ(a, ps - 1) for a in range(4)], axis=1)
+        np.testing.assert_array_equal(want, got)
+        assert got.shape == (ps.size, 4)
+    elif prim == "extend4":
+        rs = np.random.RandomState(7)
+        ks, ls = [], []
+        for _ in range(50):
+            p = rs.randint(0, ref.n - 4)
+            k, l = ref.exact_interval(t[p:p + 4])
+            ks.append(k)
+            ls.append(l)
+        ks, ls = np.asarray(ks, np.int64), np.asarray(ls, np.int64)
+        gk, gl = (x.numpy() for x in tfm.extend4(dt, _t(ks), _t(ls)))
+        wk, wl = jfm.extend4(dj, U(ks), U(ls))
+        np.testing.assert_array_equal(_u32(wk), gk)
+        np.testing.assert_array_equal(_u32(wl), gl)
+        for a in range(4):
+            ek, el = ref.extend(a, ks, ls)
+            np.testing.assert_array_equal(ek, gk[:, a])
+            np.testing.assert_array_equal(el, gl[:, a])
+    else:
+        ranks = np.arange(0, ref.n + 1, 13)
+        ranks = np.append(ranks[ranks != ref.primary], ref.primary)
+        got = getattr(tfm, prim)(dt, _t(ranks)).numpy()
+        np.testing.assert_array_equal(_u32(getattr(jfm, prim)(dj, U(ranks))),
+                                      got)
+        want = [getattr(ref, prim)(int(r)) for r in ranks[:-1]]
+        np.testing.assert_array_equal(want, got[:-1])
+        if prim == "lf":
+            assert got[-1] == 0
+
+
 # -- the shard branches, in a world of 2 gloo processes ---------------------
 SHARD_WORKER = """
 import sys
@@ -225,6 +283,16 @@ for name in names.split(","):
          for k, v in np.load(f"{work}/{name}_in.npz").items()}
     idx = ShardedIndex(DeviceIndex.load(f"{work}/{name}.npz"), mesh, "cpu").idx
     out[f"{name}_occ_lt4_flat"] = torch.stack(fm.occ_lt4_flat(idx, z["p"]))
+    # the four device functions, with the merges each call made
+    r = z["p"].clamp(max=idx.n)
+    for prim, args in (("occ_lt4", (z["p"],)), ("extend4", (z["k"], z["l"])),
+                       ("bwt_char", (r,)), ("lf", (r,))):
+        n0 = idx.collectives.all_reduces
+        got = getattr(fm, prim)(idx, *args)
+        out[f"{name}_{prim}_merges"] = torch.tensor(
+            idx.collectives.all_reduces - n0)
+        out[f"{name}_{prim}"] = (torch.stack(got) if isinstance(got, tuple)
+                                 else got)
     for rev in (False, True):
         sfx = "_rev" if rev else ""
         out[f"{name}_occ_lt{sfx}"] = fm.occ_lt(idx, z["a"], z["p"], rev=rev)
@@ -239,7 +307,10 @@ for name in names.split(","):
 np.savez(f"{work}/out{rank}.npz", **{k: v.numpy() for k, v in out.items()})
 """
 SHARD_CASES = ["direct", "edge"]
-SHARD_PRIMS = ["occ_lt4_flat", "occ_lt", "occ_lt_rev", "extend", "extend_rev"]
+SHARD_PRIMS = ["occ_lt4_flat", "occ_lt", "occ_lt_rev", "extend", "extend_rev",
+               "occ_lt4", "extend4", "bwt_char", "lf"]
+# the functions that merge exactly once a call
+ONE_MERGE = ("occ_lt4", "extend4", "bwt_char", "lf")
 
 
 def _shard_ranks(di, n_shard=2):
@@ -289,11 +360,12 @@ def shard_world(tmp_path_factory):
 @pytest.mark.parametrize("prim", SHARD_PRIMS)
 @pytest.mark.parametrize("name", SHARD_CASES)
 def test_shard_branches_match_unsharded(shard_world, name, prim):
-    """occ_lt4_flat, occ_lt and extend on a 2-shard index, at prefix
-    lengths around the shard boundary and the primary's block, on both
-    ranks equal to hsa_tpu's unsharded functions (a primary-slot
-    correction subtracted by the shard that does not own the block would
-    show here)."""
+    """occ_lt4_flat, occ_lt, extend, occ_lt4, extend4, bwt_char and lf on a
+    2-shard index, at prefix lengths (ranks) around the shard boundary and
+    the primary's block, on both ranks equal to hsa_tpu's unsharded
+    functions (a primary-slot correction subtracted, or LF(primary) = 0
+    added, by the shard that does not own the block would show here); the
+    four device functions merge once a call."""
     inputs, outs = shard_world
     _, di, dj, _ = _idx(name)
     z = inputs[name]
@@ -301,6 +373,12 @@ def test_shard_branches_match_unsharded(shard_world, name, prim):
     rev = prim.endswith("_rev")
     if prim == "occ_lt4_flat":
         want = jfm.occ_lt4_flat(dj, U(z["p"]))
+    elif prim == "occ_lt4":
+        want = [jfm.occ_lt4(dj, U(z["p"]))]
+    elif prim == "extend4":
+        want = jfm.extend4(dj, U(z["k"]), U(z["l"]))
+    elif prim in ("bwt_char", "lf"):
+        want = [getattr(jfm, prim)(dj, U(np.minimum(z["p"], di.n)))]
     elif prim.startswith("occ_lt"):
         want = [jfm.occ_lt(dj, U(z["a"]), U(z["p"]), rev=rev)]
     else:
@@ -310,6 +388,8 @@ def test_shard_branches_match_unsharded(shard_world, name, prim):
     for out in outs:
         got = out[f"{name}_{prim}"].reshape(want.shape)
         np.testing.assert_array_equal(want, got)
+        if prim in ONE_MERGE:
+            assert out[f"{name}_{prim}_merges"] == 1
 
 
 @pytest.mark.parametrize("name", SHARD_CASES)

@@ -85,6 +85,57 @@ def test_fmindex_bit_equal(n):
                                       jfm.cal_width(jrev, read))
 
 
+def _chip_smoke():
+    """chip_smoke.py, loaded by path (it is a script, not a module)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 37, 1000, 5000, "repetitive"])
+def test_chip_smoke_fm_index_by_fields(n):
+    """chip_smoke.oracle_fm_index (the oracle's FMIndex of a genome beyond
+    prefix doubling's reach, built from the native suffix array) equals
+    FMIndex.build field for field, the port's and hsa_tpu's."""
+    t = np.zeros(0, np.int8) if n == 0 else _text(n)
+    got = _chip_smoke().oracle_fm_index(t, sa_intv=8)
+    for ref in (tfm.FMIndex.build(t, sa_intv=8),
+                jfm.FMIndex.build(t, sa_intv=8)):
+        for f in dataclasses.fields(ref):
+            w, g = getattr(ref, f.name), getattr(got, f.name)
+            if isinstance(w, np.ndarray):
+                assert g.dtype == w.dtype, f.name
+                np.testing.assert_array_equal(g, w, err_msg=f.name)
+            else:
+                assert g == w, f.name
+
+
+def test_chip_smoke_fm_api_against_the_oracle():
+    """Phase 10c's check of fm.py's four device functions, on the CPU at a
+    small index: its ranks cover the primary, both ends and the block
+    edges; the four equal the oracle's FMIndex (and a wrong lf is
+    caught)."""
+    from hsa_tpu_torch.index.layout import build_device_index, to_device
+    cs = _chip_smoke()
+    t = _text(5000)
+    di = build_device_index(t, sa_intv=32)
+    ranks, width = cs.fm_api_ranks(di, 1)
+    assert ranks.size == width.size == cs.API_RANKS
+    assert ranks.min() == 0 and ranks.max() == di.n + 1
+    assert {di.primary - 1, di.primary, di.primary + 1} <= set(ranks.tolist())
+    got = cs.fm_api(to_device(di, "cpu"), ranks, width)
+    ref = cs.oracle_fm_index(t)
+    assert cs.fm_api_oracle_check(ref, ranks, width, got) > 0
+    got["lf"][ranks == 7] += 1
+    with pytest.raises(SystemExit):
+        cs.fm_api_oracle_check(ref, ranks, width, got)
+
+
 # -- the branch-and-bound search ---------------------------------------------
 
 @pytest.fixture(scope="module")

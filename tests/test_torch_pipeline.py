@@ -77,6 +77,22 @@ def test_align_stream_sam_byte_equal(corpus):
     np.testing.assert_array_equal(ta.last_overflow[0], ja.last_overflow[0])
 
 
+def test_resolve_handle_matches_jax(corpus):
+    """The library's two-phase API, search_batch_device then
+    resolve_handle, gives hsa_tpu's records byte for byte: the default
+    names from read_offset, and given names and qualities."""
+    prefix, reads, names, quals = corpus
+    ja = JAligner(prefix, engine="beam")
+    ta = TAligner(prefix, engine="beam", device="cpu")
+    sopt = SamseOpt(n_multi=2)
+    for kw in (dict(read_offset=7), dict(names=names, quals=quals, sopt=sopt)):
+        want = ja.resolve_handle(ja.search_batch_device(reads), reads, **kw)
+        got = ta.resolve_handle(ta.search_batch_device(reads), reads, **kw)
+        assert [r.to_sam() for r in got] == [r.to_sam() for r in want]
+    assert got[0].qname == names[0] and want[0].qname == names[0]
+    np.testing.assert_array_equal(ta.last_overflow[0], ja.last_overflow[0])
+
+
 @pytest.fixture(scope="module")
 def cli_corpus(tmp_path_factory):
     """The tests/test_cli.py corpus: 20 reads of 60 bp on a 5 kbp genome."""
