@@ -485,12 +485,13 @@ def device_info():
     return INT32_LANES * mhz * 1e6
 
 
-def build_kernels():
-    """Every CUDA source of the package, one nvcc each, started together."""
+def build_kernels(baseline=None):
+    """Every CUDA source of the package (and the ``baseline`` kernels), one
+    nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from hsa_tpu_torch.kernels import gather, select, sw
     kernels = {"select_topk": select.KERNEL, "glocal_screen": sw.KERNEL,
-               **gather.KERNELS}
+               **gather.KERNELS, **(baseline.kernels if baseline else {})}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
         for fut in [ex.submit(k.lib) for k in kernels.values()]:
@@ -718,8 +719,18 @@ REFUSED_BY_MODULES = ["vmem table 4 MB", "pallas VMEM take [4MB] Q=2^17"]
 # the backward-search step of phase 4b's real extend: past log4(n) (12.7 at
 # 46.7 Mbp) most live intervals span a row or two
 EXTEND_STEP = 20
+# the larger cases, where fixed costs amortise: gather_rows at the main
+# path's table and table_take at the probes' 1 MB table, 2^20 rows each
+LARGE_QUERIES = 1 << 20
+# --gather-only's sweeps of the plans: gather_rows' rows a tile (phase 4b),
+# table_take's slices of the 1 MB table and groups of a launch ("most": one
+# block an SM; phase 2b)
+SWEEP_CHUNKS = (32, 64, 128, 256, 512, 1024)
+SWEEP_SLICES = (8, 16)
+SWEEP_GROUPS = (1, 2, 4, 8, "most")
 PROBE_PHASE = ("2b. the FM row-gather probes: gather_rows, table_take and "
                "onehot_gather at every TPU probe launch they replace")
+MAIN_TABLE_PHASE = "4b. the FM row gather at the main path's table"
 
 
 def probe_modules():
@@ -809,32 +820,104 @@ def host_ms(fn, rounds=15):
     return statistics.median(times) * 1e3
 
 
+def device_ms_turns(fns, before=None):
+    """:func:`device_ms` of each function, taken in turns (a, b, ..., b,
+    a): the mean of its two medians."""
+    fwd = [device_ms(f, before=before) for f in fns]
+    rev = [device_ms(f, before=before) for f in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(fwd, rev)]
+
+
+def launch_floor_ms():
+    """What :func:`device_ms` reads for a one-element torch op: the floor
+    under every device time it reports."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    return device_ms(lambda: x.add_(1))
+
+
+class Baseline:
+    """The earlier sources of gather_rows.cu and table_take.cu in ``path``
+    (with their C interfaces ``hsa_gather_rows(tab, nb, w, q, nq, pipe,
+    chunk, out, stream)`` and ``hsa_table_take(tab, nb, q, nq, out,
+    stream)``: ``git show 93331e4:hsa_tpu_torch/csrc/<name>.cu``), built
+    by kernels/build.py beside the current kernels."""
+
+    CHUNK = 256                  # the earlier wrapper's default chunk
+
+    def __init__(self, path):
+        import ctypes
+        from hsa_tpu_torch.kernels.build import CudaKernel
+        vp, i = ctypes.c_void_p, ctypes.c_int
+
+        def rows(lib):
+            lib.hsa_gather_rows.argtypes = [vp, i, i, vp, i, i, i, vp, vp]
+            lib.hsa_gather_rows.restype = i
+
+        def take(lib):
+            lib.hsa_table_take.argtypes = [vp, i, vp, i, vp, vp]
+            lib.hsa_table_take.restype = i
+        self.kernels = {
+            "gather_rows (baseline)": CudaKernel(
+                os.path.abspath(os.path.join(path, "gather_rows.cu")), rows),
+            "table_take (baseline)": CudaKernel(
+                os.path.abspath(os.path.join(path, "table_take.cu")), take)}
+
+    @staticmethod
+    def _run(name, launch, tab, q):
+        """``launch(out pointer, stream)`` into a new [NQ, W] output."""
+        import torch
+        out = torch.empty((q.numel(), tab.shape[1]), dtype=torch.int32,
+                          device=tab.device)
+        err = launch(out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"{name} launch failed: CUDA error {err}")
+        return out
+
+    def gather_rows(self, tab, q, pipe, chunk):
+        fn = self.kernels["gather_rows (baseline)"].lib().hsa_gather_rows
+        return self._run("gather_rows (baseline)", lambda out, st: fn(
+            tab.data_ptr(), tab.shape[0], tab.shape[1], q.data_ptr(),
+            q.numel(), pipe, chunk, out, st), tab, q)
+
+    def table_take(self, tab, q):
+        fn = self.kernels["table_take (baseline)"].lib().hsa_table_take
+        return self._run("table_take (baseline)", lambda out, st: fn(
+            tab.data_ptr(), tab.shape[0], q.data_ptr(), q.numel(), out, st),
+            tab, q)
+
+
 def gather_bound(kernel, tab, q):
-    """(bound ms, what binds it, bytes ms, operations ms): bytes are the
-    indices read, the rows written and one 32-byte sector per 32 bytes of
-    each distinct row read, over 3.35 TB/s; operations (onehot_gather only)
-    the one-hot product exactly in int8, 2 x Q x R x 32, over the int8
-    tensor-core peak."""
+    """(bound ms, what binds it, bytes ms, operations ms, bytes ms at 64
+    bytes a row read): bytes are the indices read, the rows written and one
+    32-byte sector per 32 bytes of each distinct row read, over 3.35 TB/s;
+    operations (onehot_gather only) the one-hot product exactly in int8, 2 x
+    Q x R x 32, over the int8 tensor-core peak.  The last counts each
+    distinct row of 32 bytes read as 64, the device memory's access
+    granularity for a random row (printed beside the bound, not the
+    bound)."""
     import torch
     nb, w = tab.shape
     nq = q.numel()
     distinct = torch.unique(q.clamp(0, nb - 1)).numel()
     t_bytes = (4 * nq + 4 * w * nq + 4 * w * distinct) / HBM_BYTES_S
+    t_64 = (4 * nq + 4 * w * nq + max(4 * w, 64) * distinct) / HBM_BYTES_S
     t_ops = (2 * nq * nb * 32 / INT8_TC_OPS_S
              if kernel == "onehot_gather" else 0.0)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", t_bytes * 1e3,
-            t_ops * 1e3)
+            t_ops * 1e3, t_64 * 1e3)
 
 
 def gather_compare(name, kernel, run_k, run_p, run_l, tab, q, expected,
-                   shape, replaces, before=None, variants=None):
+                   shape, replaces, before=None, variants=None, base=None):
     """Kernel == plain == ``expected`` exactly and the library call the same
     function, then median ms of the three in turns and their device ms
     (with ``before`` ahead of each call, outside both), the kernel's host ms
-    per launch and the bound.  ``variants`` (label -> (call, its output as
-    int32 words)) are other library calls of the same function, checked and
-    timed in the same turns."""
+    per launch and the bound, beside the launch floor.  ``variants`` (label
+    -> (call, its output as int32 words)) are other library calls of the
+    same function, checked and timed in the same turns; ``base``, the
+    baseline kernel on the same inputs, checked and timed in turns too."""
     import torch
     from hsa_tpu_torch.kernels import gather
     k_out, p_out = run_k(), run_p()
@@ -852,40 +935,58 @@ def gather_compare(name, kernel, run_k, run_p, run_l, tab, q, expected,
     if not torch.equal(lib, p_out):
         fail(f"the library yardstick of {kernel} {name} computes another "
              "function")
-    variants = variants or {}
+    variants = dict(variants or {})
+    if base is not None:
+        variants["baseline kernel"] = (base, lambda x: x)
     for label, (fn, words) in variants.items():
         if not torch.equal(words(fn()), p_out):
             fail(f"{label} ({kernel} {name}) computes another function")
     fns = [run_k, run_p, run_l] + [fn for fn, _ in variants.values()]
     times = time_turns(fns, before=before)
     ms, plain_ms, library_ms = times[:3]
-    dev = [device_ms(f, before=before) for f in fns]
-    bound_ms, bound_by, bytes_ms, ops_ms = gather_bound(kernel, tab, q)
+    dev = device_ms_turns(fns, before=before)
+    bound_ms, bound_by, bytes_ms, ops_ms, b64_ms = gather_bound(kernel, tab,
+                                                                q)
     h_ms = host_ms(run_k)
+    floor = launch_floor_ms()
+    extra = {}
+    if kernel == "table_take":
+        plan = gather.table_take_plan(tab, q)
+        extra = dict(plan=plan.__dict__, staging_bytes=plan.groups
+                     * plan.slices * plan.rows * 32,
+                     index_rescan_bytes=(plan.slices - 1) * 4 * q.numel())
     print(f"{kernel} {name} ({shape}): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library {library_ms:.4f} ms; device time "
-          f"{dev[0]:.4f} / {dev[1]:.4f} / {dev[2]:.4f} ms; host time per launch {h_ms:.4f} ms; bound {bound_ms:.4g} ms "
-          f"({bound_by}; bytes {bytes_ms:.4g} ms"
+          f"{dev[0]:.4f} / {dev[1]:.4f} / {dev[2]:.4f} ms (launch floor "
+          f"{floor:.4f}); host time per launch {h_ms:.4f} ms; bound "
+          f"{bound_ms:.4g} ms ({bound_by}; bytes {bytes_ms:.4g} ms, at 64 "
+          f"bytes a row read {b64_ms:.4g} ms"
           + (f", int8 tensor cores {ops_ms:.4g} ms" if ops_ms else "")
-          + f"; {ms / bound_ms:.1f}x); max |err| {err}")
+          + f"; {ms / bound_ms:.1f}x, device {dev[0] / bound_ms:.1f}x)"
+          + (f"; plan {extra['plan']}, beyond the bound: staging "
+             f"{extra['staging_bytes']} bytes, indices scanned again "
+             f"{extra['index_rescan_bytes']} bytes" if extra else "")
+          + f"; max |err| {err}")
     for i, label in enumerate(variants, 3):
-        print(f"  library variant {label}: {times[i]:.4f} ms, device time "
-              f"{dev[i]:.4f} ms")
+        print(f"  {label}: {times[i]:.4f} ms, device time {dev[i]:.4f} ms")
     return dict(case=name, replaces=replaces, shape=shape, rows=tab.shape[0],
                 queries=q.numel(), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, device_ms=dev[0],
                 plain_device_ms=dev[1], library_device_ms=dev[2],
-                host_ms=h_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms,
-                max_abs_err=err, library_variants={
+                launch_floor_ms=floor, host_ms=h_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_bytes_ms=bytes_ms,
+                bound_ops_ms=ops_ms, bytes_64_ms=b64_ms, max_abs_err=err,
+                **extra,
+                library_variants={
                     label: dict(ms=times[i], device_ms=dev[i])
                     for i, label in enumerate(variants, 3)})
 
 
-def probe_case(case, capacity, dev="cuda"):
+def probe_case(case, capacity, dev="cuda", baseline=None):
     """One launch of a TPU probe's kernel at the probe's own inputs, on the
     card: refused before launch when it is table_take's and the table is
-    above the chip's ``capacity`` (rows), else compared and timed."""
+    above the chip's ``capacity`` (rows), else compared and timed (beside
+    the ``baseline`` kernel, if given)."""
     import torch
     from hsa_tpu_torch.kernels import gather
     tab_np, q_np, tab, q = case.tensors(dev)
@@ -908,22 +1009,30 @@ def probe_case(case, capacity, dev="cuda"):
             fail("table_take counted a launch for a refused table")
         return dict(case=case.label, replaces=case.replaces, shape=shape,
                     refused=True)
+    base = None
     if case.kernel == "onehot_gather":
         oh = (torch.arange(nb, device=dev)[None, :] == q[:, None]).float()
         tabf = gather.words_to_float(tab)
         run_l = lambda: torch.matmul(oh, tabf)                 # noqa: E731
     else:
         run_l = lambda: torch.index_select(tab, 0, q)          # noqa: E731
+    if baseline and case.kernel == "gather_rows":
+        base = lambda: baseline.gather_rows(                   # noqa: E731
+            tab, q, case.pipe, case.chunk or Baseline.CHUNK)
+    elif baseline and case.kernel == "table_take":
+        base = lambda: baseline.table_take(tab, q)             # noqa: E731
     return gather_compare(case.label, case.kernel, lambda: case.run(tab, q),
                           lambda: case.run(tab, q, plain=True), run_l, tab, q,
-                          case.expected(tab_np, q_np), shape, case.replaces)
+                          case.expected(tab_np, q_np), shape, case.replaces,
+                          base=base)
 
 
-def probe_phase(dev="cuda"):
+def probe_phase(dev="cuda", baseline=None, sweep=False):
     """The three gather kernels at every TPU probe launch they replace: the
     probe modules driven as a user runs them (the launch counts), then each
     launch held exactly against plain and the probe's own check and timed;
-    table_take's refusals above the chip's capacity asserted."""
+    table_take's refusals above the chip's capacity asserted; table_take's
+    larger case (and with ``sweep``, its plan swept)."""
     import torch
     from hsa_tpu_torch.kernels import gather
     if torch.backends.cuda.matmul.allow_tf32:
@@ -937,7 +1046,8 @@ def probe_phase(dev="cuda"):
     for mod, _ in probe_modules():
         for cases in mod.KERNEL_CASES.values():
             for case in cases:
-                rows[case.kernel].append(probe_case(case, capacity, dev))
+                rows[case.kernel].append(probe_case(case, capacity, dev,
+                                                    baseline))
     ran = [r for r in rows["table_take"] if not r.get("refused")]
     refused = [r["case"] for r in rows["table_take"] if r.get("refused")]
     if not ran or sorted(refused) != sorted(REFUSED_TABLES):
@@ -946,6 +1056,10 @@ def probe_phase(dev="cuda"):
     print(f"table_take: the largest probe table that ran: "
           f"{max(ran, key=lambda r: r['rows'])['case']}; refused: "
           f"{', '.join(refused)}")
+    t0 = time.perf_counter()
+    rows["table_take (larger case)"] = take_large_phase(dev, baseline, sweep)
+    print(f"table_take's larger case took "
+          f"{time.perf_counter() - t0:.3f} s")
     return launches, rows
 
 
@@ -969,16 +1083,19 @@ def wide_to_words(x):
     return (x - ((x >> 31) << 32)).int()
 
 
-def main_table_phase(prefix, seed, ends, dev="cuda"):
+def main_table_phase(prefix, seed, ends, dev="cuda", baseline=None,
+                     sweep=False):
     """gather_rows against the library at the main path's own table, phase
-    3's forward occ rows, for MAIN_TABLE_QUERIES rows twice: uniform random
-    rows, and the block ids of a real ``extend`` over ``ends`` (a paired
-    pigeon batch's 65,536 lanes).  The library yardstick is
+    3's forward occ rows: MAIN_TABLE_QUERIES uniform random rows, the block
+    ids of a real ``extend`` over ``ends`` (a paired pigeon batch's 65,536
+    lanes), and LARGE_QUERIES uniform rows.  The library yardstick is
     ``index_select`` with int64 ids, the call inside ``fm._gather_rows``;
-    int32 ids, ``fm._gather_rows`` whole and ``tab[b]`` beside it.  Each
-    warm (the table is about as large as the L2 cache, so part of it is
-    there) and with the L2 flushed by a 128 MB write ahead of every call,
-    each also at every pipe depth (device ms)."""
+    int32 ids, ``fm._gather_rows`` whole and ``tab[b]`` beside it (and the
+    ``baseline`` kernel, if given, and its device ms at every pipe depth).
+    Each warm (the table is about as large as the L2 cache, so part of it
+    is there) and with the L2 flushed by a 128 MB write ahead of every
+    call; with ``sweep``, each also at every SWEEP_CHUNKS tile (device
+    ms)."""
     import torch
     from hsa_tpu_torch.kernels import gather
     from hsa_tpu_torch.search import fm
@@ -987,24 +1104,33 @@ def main_table_phase(prefix, seed, ends, dev="cuda"):
     tab = idx.occ_blocks
     tab_np = tab.cpu().numpy().view(np.uint32)
     nb = tab.shape[0]
-    uniform = torch.from_numpy(np.random.RandomState(seed + 11).randint(
-        0, nb, MAIN_TABLE_QUERIES).astype(np.int64)).to(dev)
+    rs = np.random.RandomState(seed + 11)
+    uniform = torch.from_numpy(rs.randint(0, nb, MAIN_TABLE_QUERIES).astype(
+        np.int64)).to(dev)
     real = extend_block_ids(idx, ends)
     if real.numel() != MAIN_TABLE_QUERIES:
         fail(f"the extend gathers {real.numel()} rows, not "
              f"{MAIN_TABLE_QUERIES}")
+    large = torch.from_numpy(rs.randint(0, nb, LARGE_QUERIES).astype(
+        np.int64)).to(dev)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     out = {}
-    for ids, b in (("uniform", uniform), ("extend", real)):
+    for ids, b in (("uniform", uniform), ("extend", real),
+                   ("uniform 2^20", large)):
+        t0 = time.perf_counter()
         b32 = b.int()
         expected = tab_np[b32.cpu().numpy()]
         shape = (f"tab [{nb}, 8] ({tab.numel() * 4 / 1e6:.1f} MB) q "
-                 f"[{b.numel()}] {ids} pipe=8 chunk={gather.CHUNK}")
+                 f"[{b.numel()}] {ids} chunk={gather.CHUNK}")
         variants = {"index_select, int32 ids": (
             lambda: torch.index_select(tab, 0, b32), lambda x: x),
             "fm._gather_rows, int64 ids": (
             lambda: fm._gather_rows(tab, b), wide_to_words),
             "tab[b], int64 ids": (lambda: tab[b], lambda x: x)}
+        base = None
+        if baseline:
+            base = lambda: baseline.gather_rows(                # noqa: E731
+                tab, b32, 8, Baseline.CHUNK)
         for mode, before in (("warm", None),
                              ("L2 flushed", lambda: flush.fill_(7))):
             key = f"{ids}, {mode}"
@@ -1013,15 +1139,83 @@ def main_table_phase(prefix, seed, ends, dev="cuda"):
                 lambda: gather.gather_rows(tab, b32),
                 lambda: gather.rows_plain(tab, b32),
                 lambda: torch.index_select(tab, 0, b), tab, b32, expected,
-                shape, "main path table", before=before, variants=variants)
-            by_pipe = {pipe: device_ms(
-                lambda: gather.gather_rows(tab, b32, pipe), before=before)
-                for pipe in gather.PIPES}
-            print(f"gather_rows at the main path's table, {key}, device ms "
-                  "by pipe: " + ", ".join(f"pipe={p} {ms:.4f}"
-                                          for p, ms in by_pipe.items()))
-            out[key]["device_ms_by_pipe"] = by_pipe
+                shape, "main path table", before=before, variants=variants,
+                base=base)
+            if sweep:
+                by_chunk = {chunk: device_ms(
+                    lambda: gather.gather_rows(tab, b32, chunk=chunk),
+                    before=before) for chunk in SWEEP_CHUNKS}
+                print(f"gather_rows at the main path's table, {key}, device "
+                      "ms by chunk: " + ", ".join(
+                          f"chunk={c} {ms:.4f}" for c, ms in by_chunk.items()))
+                out[key]["device_ms_by_chunk"] = by_chunk
+            if baseline:
+                by_pipe = {pipe: device_ms(
+                    lambda: baseline.gather_rows(tab, b32, pipe,
+                                                 Baseline.CHUNK),
+                    before=before) for pipe in gather.PIPES}
+                print(f"  baseline kernel, {key}, device ms by pipe: "
+                      + ", ".join(f"pipe={p} {ms:.4f}"
+                                  for p, ms in by_pipe.items()))
+                out[key]["baseline_device_ms_by_pipe"] = by_pipe
+        print(f"gather_rows at the main path's table, {ids} ids, both modes: "
+              f"{time.perf_counter() - t0:.3f} s")
     return out
+
+
+def take_large_phase(dev="cuda", baseline=None, sweep=False):
+    """table_take on the probes' 1 MB table at LARGE_QUERIES queries, held
+    and timed as a probe launch is; with ``sweep``, then its plan swept
+    (device ms, every launch held exactly against plain): SWEEP_SLICES x
+    SWEEP_GROUPS at 16,384, 131,072 and LARGE_QUERIES queries and at one
+    query (the staging alone), and one group of each slice count over an
+    8-row table at one query (the launch alone)."""
+    import torch
+    from hsa_tpu_torch.index.layout import words_to_device
+    from hsa_tpu_torch.kernels import gather
+    from hsa_tpu_torch.tools._cases import random_table
+    nb = 32_768
+    tab_np = random_table(nb, 8)
+    tab = words_to_device(tab_np, dev)
+    q_np = np.random.RandomState(12).randint(0, nb, LARGE_QUERIES).astype(
+        np.int32)
+    q = torch.from_numpy(q_np).to(dev)
+    base = None
+    if baseline:
+        base = lambda: baseline.table_take(tab, q)             # noqa: E731
+    large = gather_compare(
+        "1 MB table, 2^20 queries", "table_take",
+        lambda: gather.table_take(tab, q), lambda: gather.rows_plain(tab, q),
+        lambda: torch.index_select(tab, 0, q), tab, q, tab_np[q_np],
+        f"tab [{nb}, 8] q [{LARGE_QUERIES}]", "larger case", base=base)
+
+    if not sweep:
+        return large
+    swept = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [(tab, q[:n], cs, c) for n in (16_384, MAIN_TABLE_QUERIES,
+                                           LARGE_QUERIES, 1)
+             for cs in SWEEP_SLICES for c in SWEEP_GROUPS]
+    cases += [(tab[:8], q[:1] % 8, cs, 1) for cs in (1,) + SWEEP_SLICES]
+    for t, qq, cs, c in cases:
+        n_g = sms // cs if c == "most" else c
+        if any(r["rows"] == t.shape[0] and r["queries"] == qq.numel() and
+               r["slices"] == cs and r["groups"] == n_g for r in swept):
+            continue
+        rows = -(-t.shape[0] // cs)
+        plan = gather.TakePlan(cs, rows, n_g, rows * 32)
+        if not torch.equal(gather.take_launch(t, qq, plan),
+                           gather.rows_plain(t, qq)):
+            fail(f"table_take by plan {plan} differs from its plain version")
+        ms = device_ms(lambda: gather.take_launch(t, qq, plan))
+        swept.append(dict(rows=t.shape[0], queries=qq.numel(), slices=cs,
+                          groups=n_g, device_ms=ms, staging_bytes=n_g * cs
+                          * plan.rows * 32))
+        print(f"table_take sweep: tab [{t.shape[0]}, 8] q [{qq.numel()}] "
+              f"{n_g} groups of {cs} slices: device {ms:.4f} ms, staging "
+              f"{n_g * cs * plan.rows * 32} bytes")
+    large["plan_sweep"] = swept
+    return large
 
 
 def gather_rows_json(launches, rows, main_table=None, main_launches=None):
@@ -1054,8 +1248,11 @@ def gather_rows_json(launches, rows, main_table=None, main_launches=None):
             row[k] = top[k]
         row["ms_per"] = per
         row["shape"] = top["shape"]
+        row["launch_floor_ms"] = top["launch_floor_ms"]
         if name == "gather_rows" and main_table:
             row["main_table"] = main_table
+        if name == "table_take":
+            row["larger_case"] = rows["table_take (larger case)"]
         row["shapes"] = rows[name]
         out.append(row)
     return out
@@ -3448,6 +3645,17 @@ def main():
     ap.add_argument("--probes-only", action="store_true",
                     help="only phases 1 and 2b (the gather probes' kernels); "
                          "prints their kernel rows and no result line")
+    ap.add_argument("--gather-only", action="store_true",
+                    help="only phases 1, 2b and 4b (the gather kernels at "
+                         "the probes' inputs and at the main path's table, "
+                         "with phase 3's index and phase 6's pairs for the "
+                         "extend's ids), with sweeps of gather_rows' and "
+                         "table_take's plans; prints their kernel rows and "
+                         "no result line")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="also build the earlier gather_rows.cu and "
+                         "table_take.cu in DIR and hold and time them in "
+                         "turns with the current ones in phases 2b and 4b")
     ap.add_argument("--oracle-only", action="store_true",
                     help="only phases 1 and 12 (the card's records against "
                          "the oracle); prints no result line")
@@ -3476,10 +3684,11 @@ def main():
     if a.handle_cpu:
         handle_cpu(*a.handle_cpu)
         return
+    baseline = Baseline(a.baseline) if a.baseline else None
 
     phase("1. device and build")
     int32_ops_s = device_info()
-    build_kernels()
+    build_kernels(baseline)
     if a.glocal_only:
         phase("5. glocal_screen kernel against its plain version and the "
               "native DP")
@@ -3508,18 +3717,35 @@ def main():
                          {})
         return
 
-    if a.probes_only:
+    if a.probes_only or a.gather_only:
         phase(PROBE_PHASE)
-        probe_launches, probe_rows = probe_phase()
-        print(json.dumps({"kernels": gather_rows_json(probe_launches,
-                                                      probe_rows)}))
+        probe_launches, probe_rows = probe_phase(baseline=baseline,
+                                                 sweep=a.gather_only)
+        main_table = None
+        if a.gather_only:
+            phase(MAIN_TABLE_PHASE)
+            t0 = time.perf_counter()
+            genome = make_genome(GENOME_BP, a.seed)
+            prefix, index_s = ensure_index(genome, a.seed, smoke_dir())
+            r1s, r2s, _ = make_pairs(genome, PE_PAIRS, a.seed)
+            del genome
+            print(f"index build seconds: "
+                  f"{index_s if index_s is not None else 'cached'}; index "
+                  f"and pairs ready in {time.perf_counter() - t0:.3f} s")
+            t0 = time.perf_counter()
+            main_table = main_table_phase(prefix, a.seed, r1s + r2s,
+                                          baseline=baseline, sweep=True)
+            print(f"phase 4b's gather at the main path's table took "
+                  f"{time.perf_counter() - t0:.3f} s")
+        print(json.dumps({"kernels": gather_rows_json(
+            probe_launches, probe_rows, main_table)}))
         return
 
     phase("2. select_topk kernel against its plain version on the card")
     shapes, compared = kernel_phase(a.seed, int32_ops_s)
 
     phase(PROBE_PHASE)
-    probe_launches, probe_rows = probe_phase()
+    probe_launches, probe_rows = probe_phase(baseline=baseline)
 
     phase("3. main path: index + align --engine beam --device cuda")
     workdir = smoke_dir()
@@ -3590,11 +3816,11 @@ def main():
     print(f"cross-check: align --device cpu on the first {n} reads gives a "
           f"SAM byte-equal to the card's ({time.perf_counter() - t0:.3f} s)")
 
-    phase("4b. the FM row gather at the main path's table; occ_probe5 on "
-          "phase 3's index")
+    phase(MAIN_TABLE_PHASE + "; occ_probe5 on phase 3's index")
     t0 = time.perf_counter()
     n0 = {name: k.launches for name, k in gather.KERNELS.items()}
-    main_table = main_table_phase(prefix, a.seed, r1s + r2s)
+    main_table = main_table_phase(prefix, a.seed, r1s + r2s,
+                                  baseline=baseline)
     gather_timed = {name: k.launches - n0[name]
                     for name, k in gather.KERNELS.items()}
     from hsa_tpu_torch.tools import occ_probe5

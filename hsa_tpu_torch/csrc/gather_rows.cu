@@ -11,110 +11,94 @@
 //     :171 test_unroll (:210), :220 test_grid (:245), :255 test_scoped
 //     (:290), :300 test_wide (:337, W = 32)
 //   tools/sync_probe.py:135 test_dma (:178), PIPE 16
-// On the card they are launch parameters of this one kernel: `pipe` (the
-// rows whose loads a thread keeps in flight before it stores any, the
-// counterpart of PIPE outstanding DMAs), `chunk` (the queries of one block;
-// test_grid's CHUNK) and the row width W.
+// On the card they are one kernel whose launch differs only in `tile` (the
+// rows of a block; test_grid's CHUNK) and the row width W.  A block keeps
+// all of its tile's row loads in flight at once, so the probes' PIPE has
+// nothing left to set here.
 //
 // What bounds it: bytes.  The function reads NQ indices (4 bytes each), one
 // 32-byte sector per distinct row of 32 bytes (four per row of 128), and
 // writes NQ rows.  The rows are random, so nothing is shared between
 // neighbouring queries and every row read is a separate trip to memory
 // (device memory or, for a table that fits, the 50 MB L2).  At the card's
-// ~3.35 TB/s and several hundred ns a trip, tens of thousands of row loads
-// must be in flight across the card to reach the rate.
+// ~3.35 TB/s and about 1 us a trip, some 3.4 MB (over 100,000 rows of 32
+// bytes) must be in flight across the card to reach the rate, and each row
+// waits for its index: two dependent trips, then the store.
 //
-// Design (a simple kernel that is right; a TMA bulk-copy ring with mbarriers,
-// one copy per row with the barrier as its semaphore, is a later design):
-//   - T = W / 4 neighbouring threads own one row, each moving 16 bytes: one
-//     int4 load through the read-only non-coherent path, one int4 store.
-//   - A thread issues the loads of `pipe` rows into registers before it
-//     stores any of them, so pipe x (threads / T) rows are in flight per
-//     block.
-//   - The rows of one step are spread over the block's thread groups
-//     (row = base + k * groups + g), so the stores of step k are contiguous
-//     across a warp.
-//   - A block takes `chunk` consecutive queries and walks them in steps of
-//     groups x pipe rows; its width is the fewest warps that give every
-//     group `pipe` rows of the chunk, at most 256 threads.
-// Indices are clamped to the table, as the FM primitives' gathers are.
+// Design: a block a tile of `tile` consecutive queries, a thread a row of it,
+// the grid all of the tiles:
+//   - One index load a row: thread j loads row j's index (coalesced across
+//     the warp) and the warp's T = W / 4 lanes of a row take it by shuffle.
+//   - Each lane then loads its T 16-byte pieces of the warp's 32 rows (piece
+//     p = j * 32 + lane: row p / T, part p % T), all T in flight at once,
+//     and stores them: a warp's stores of one round are 512 contiguous bytes
+//     (a tile's output rows are consecutive).  The stores are st.global.cs,
+//     evict-first, so that the output does not push table rows out of L2.
+// A persistent grid whose blocks kept the cp.async row copies of several
+// tiles in flight in a shared-memory ring was no faster on an H100 80GB
+// HBM3 (700 W): equal at 131,072 rows, slower at 2^20 rows warm, faster
+// only at 2^20 rows with the L2 flushed (PERF.md, section 6).
+// The launch plan (tile, threads, grid) is made in kernels/gather.py
+// (rows_plan) and checked here.  Indices are clamped to the table, as the FM
+// primitives' gathers are.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 1024;
 
-template <int T, int PIPE>
+template <int T>
 __global__ void __launch_bounds__(kMaxThreads)
 gather_rows_kernel(const int4* __restrict__ tab, int nb,
-                   const int32_t* __restrict__ q, int nq, int chunk,
+                   const int32_t* __restrict__ q, int nq, int tile,
                    int4* __restrict__ out) {
-  const int groups = blockDim.x / T;
-  const int g = threadIdx.x / T;
-  const int part = threadIdx.x % T;
-  const long long c0 = (long long)blockIdx.x * chunk;
-  const int n = (int)min((long long)chunk, (long long)nq - c0);
-  for (int base = 0; base < n; base += groups * PIPE) {
-    int4 v[PIPE];
+  const int lane = threadIdx.x & 31;
+  const int row0 = threadIdx.x & ~31;  // the warp's first row of the tile
+  const long long t0 = (long long)blockIdx.x * tile;
+  const int n = (int)min((long long)tile, nq - t0);
+  int32_t raw = 0;
+  if ((int)threadIdx.x < n) raw = __ldcs(q + t0 + threadIdx.x);
+  int4 v[T];
 #pragma unroll
-    for (int k = 0; k < PIPE; ++k) {
-      const int r = base + k * groups + g;
-      if (r < n) {
-        const int b = min(max(__ldg(q + c0 + r), 0), nb - 1);
-        v[k] = __ldg(tab + (long long)b * T + part);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < PIPE; ++k) {
-      const int r = base + k * groups + g;
-      if (r < n) out[(c0 + r) * T + part] = v[k];
-    }
+  for (int j = 0; j < T; ++j) {
+    const int p = j * 32 + lane;
+    const int b = min(max(__shfl_sync(0xffffffffu, raw, p / T), 0), nb - 1);
+    if (row0 + p / T < n) v[j] = __ldg(tab + (long long)b * T + p % T);
   }
-}
-
-template <int T, int PIPE>
-int launch(const int4* tab, int nb, const int32_t* q, int nq, int chunk,
-           int4* out, cudaStream_t stream) {
-  const long long groups_needed = ((long long)chunk + PIPE - 1) / PIPE;
-  long long threads = (groups_needed * T + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const long long blocks = ((long long)nq + chunk - 1) / chunk;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  gather_rows_kernel<T, PIPE><<<(unsigned)blocks, (unsigned)threads, 0,
-                                 stream>>>(tab, nb, q, nq, chunk, out);
-  return (int)cudaGetLastError();
+  int4* dst = out + (t0 + row0) * T;
+#pragma unroll
+  for (int j = 0; j < T; ++j)
+    if (row0 + (j * 32 + lane) / T < n) __stcs(dst + j * 32 + lane, v[j]);
 }
 
 template <int T>
-int launch_pipe(const int4* tab, int nb, const int32_t* q, int nq, int pipe,
-                int chunk, int4* out, cudaStream_t stream) {
-  switch (pipe) {
-    case 1: return launch<T, 1>(tab, nb, q, nq, chunk, out, stream);
-    case 2: return launch<T, 2>(tab, nb, q, nq, chunk, out, stream);
-    case 4: return launch<T, 4>(tab, nb, q, nq, chunk, out, stream);
-    case 8: return launch<T, 8>(tab, nb, q, nq, chunk, out, stream);
-    case 16: return launch<T, 16>(tab, nb, q, nq, chunk, out, stream);
-    case 32: return launch<T, 32>(tab, nb, q, nq, chunk, out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch(const int4* tab, int nb, const int32_t* q, int nq, int tile,
+           int threads, int grid, int4* out, cudaStream_t stream) {
+  gather_rows_kernel<T><<<grid, threads, 0, stream>>>(tab, nb, q, nq, tile,
+                                                      out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns the CUDA error of the launch (0 on
 // success).  `tab` is [nb, w] int32 with w = 8 or 32, 16-byte aligned; `q` is
-// [nq] int32; `out` is [nq, w] int32.  pipe is 1, 2, 4, 8, 16 or 32.
+// [nq] int32; `out` is [nq, w] int32, 16-byte aligned.  The plan (from
+// kernels/gather.py:rows_plan) is checked: 1 <= tile <= 1024, threads = tile
+// rounded up to a warp, grid = the tiles.
 extern "C" int hsa_gather_rows(const void* tab, int nb, int w, const void* q,
-                               int nq, int pipe, int chunk, void* out,
-                               void* stream) {
-  if (nb < 1 || nq < 1 || chunk < 1) return (int)cudaErrorInvalidValue;
+                               int nq, int tile, int threads, int grid,
+                               void* out, void* stream) {
+  if (nb < 1 || nq < 1 || tile < 1 || tile > kMaxThreads ||
+      threads != (tile + 31) / 32 * 32 || grid != (nq + tile - 1LL) / tile)
+    return (int)cudaErrorInvalidValue;
   const int4* t = (const int4*)tab;
   const int32_t* qq = (const int32_t*)q;
   int4* o = (int4*)out;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (w == 8) return launch_pipe<2>(t, nb, qq, nq, pipe, chunk, o, st);
-  if (w == 32) return launch_pipe<8>(t, nb, qq, nq, pipe, chunk, o, st);
+  if (w == 8) return launch<2>(t, nb, qq, nq, tile, threads, grid, o, st);
+  if (w == 32) return launch<8>(t, nb, qq, nq, tile, threads, grid, o, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -141,8 +141,9 @@ KERNEL_CASES = {
 
 
 def test_dma(dev):
-    # per-query 32B row gather from a table in device memory, 8 rows in
-    # flight per thread (the TPU probe's PIPE = 8 DMAs)
+    # per-query 32B row gather from a table in device memory (the TPU
+    # probe's PIPE = 8 DMAs; on the card a block has its whole tile of rows
+    # in flight)
     case, = KERNEL_CASES["dma"]
     tab_np, q_np, tab, q = case.tensors(dev)
     NQ = len(q_np)

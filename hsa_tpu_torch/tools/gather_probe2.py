@@ -3,7 +3,8 @@
 
   widthscale   index_select Mq/s vs row width (is cost per-row or per-byte?)
   saturate     index_select Mq/s vs query-vector length (amortization curve)
-  dmapipe      per-query 32B-row gather, PIPE rows in flight (gather_rows)
+  dmapipe      per-query 32B-row gather (gather_rows; the TPU's PIPE 8 and
+               32 are kept as labels: the card's kernel is the same launch)
   rowloop      row loads from a table staged on chip (table_take)
   onehot       one-hot gather on the tensor cores from a staged chunk
                (onehot_gather)

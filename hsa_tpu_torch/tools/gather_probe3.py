@@ -4,8 +4,11 @@
 On the TPU each variant was another way of asking Mosaic for PIPE
 outstanding row DMAs, because some forms failed to compile.  On the card
 they all compute ``out[i] = tab[q[i]]`` with the one kernel
-``gather_rows``, whose launch parameters stand for the variant; each is
-printed under its TPU label so that the two probes' outputs line up:
+``gather_rows``; each is printed under its TPU label so that the two
+probes' outputs line up.  The kernel keeps a block's whole tile of rows in
+flight, so the TPU's PIPE (passed as ``pipe``) sets nothing: the variants
+labelled by pipe are one launch, of 256-row tiles, and only ``grid`` and
+``wide`` launch differently:
 
   orig       pipe 8 and 32
   pow2       pipe 8

@@ -353,3 +353,37 @@ def test_engine_equals_oracle_pe(pe_text, engine):
     want = tpipeline.oracle_align_pe(text, meta, reads1, reads2, names, None,
                                      None, AlnOpt(max_diff=2), device="cpu")
     assert [r.to_sam() for r in got] == [r.to_sam() for r in want]
+
+
+@pytest.mark.slow
+def test_w512_overflow_equals_reference(tmp_path):
+    """chip_smoke.py phase 12's W=512 beam on its own 2^20 bp genome and 258
+    reads (the script's generators at its default seed), on the CPU: the
+    port's dropped frontier states and hits equal ``hsa_tpu``'s read by read,
+    and total the 16,740 states the card dropped there."""
+    from hsa_tpu.pipeline import Aligner as JAligner
+    cs = _chip_smoke()
+    genome, prefix = cs.oracle_genome(1, str(tmp_path))
+    reads = cs.oracle_reads(genome, 1)
+    names = [f"r{j}" for j in range(len(reads))]
+    quals = ["I" * len(r) for r in reads]
+    W, md = cs.ORACLE_SE_W, cs.ORACLE_MAX_DIFF
+    ta = tpipeline.Aligner(prefix, AlnOpt(max_diff=md), engine="beam",
+                           device="cpu")
+    got = ta.align(reads, names, quals, beam_width=W)
+    ja = JAligner(prefix, JAlnOpt(max_diff=md), engine="beam")
+    want = ja.align(reads, names, quals, beam_width=W)
+    # each: (frontier states dropped, hits dropped), one count a lane
+    (g_live, g_hits), (w_live, w_hits) = ta.last_overflow, ja.last_overflow
+    for what, g, w in (("frontier states", g_live, w_live),
+                       ("hits", g_hits, w_hits)):
+        g, w = np.asarray(g, np.int64), np.asarray(w, np.int64)
+        assert g.shape == w.shape == (2 * len(reads),), (what, g.shape,
+                                                         w.shape)
+        diff = np.nonzero(g != w)[0]
+        assert diff.size == 0, (
+            f"{what} dropped: first lane that differs {diff[:1]} (read "
+            f"{diff[:1] % len(reads)}): port {g[diff[:1]]}, hsa_tpu "
+            f"{w[diff[:1]]}")
+    assert int(np.asarray(g_live, np.int64).sum()) == 16_740
+    assert [r.to_sam() for r in got] == [r.to_sam() for r in want]
