@@ -47,7 +47,12 @@ any result.
    function; median ms of the three in turns (one call between CUDA
    events, so the host's time to issue it counts), their device ms (calls
    queued behind a sleeping kernel, so that the card runs them back to
-   back), the kernel's host ms per launch, and the bound.
+   back), the kernel's host ms per launch, and the bound (the bytes: for
+   the one-hot product, a sparse one, the bytes of the gather it stands
+   for).  onehot_gather also at R = 7,233 (above the first design's
+   limit; full-range words, the clamped indices) and at R = 2,048 with
+   2^20 queries, and its host ms beside that of a bare ctypes launch of
+   its kernel, in turns.
    table_take's tables above the card's on-chip capacity (the largest
    thread-block cluster it schedules x 7,264 rows) must be refused with
    ``ValueError`` before any launch; prints the capacity and the largest
@@ -696,7 +701,8 @@ def select_path_phase(path, launched, compared, seed, int32_ops_s):
 
 
 # -- 2b. the FM row-gather probes --------------------------------------------
-# dense int8 tensor-core peak (H100 SXM data sheet), for onehot_gather's bound
+# dense int8 tensor-core peak (H100 SXM data sheet), for the time of
+# onehot_gather's dense product, printed beside its bound
 INT8_TC_OPS_S = 1.979e15
 # the port's probe modules and the tests of each that launch a kernel ([]: all)
 PROBE_RUNS = [("gather_probe", ["dma", "vmemtake"]),
@@ -720,8 +726,14 @@ REFUSED_BY_MODULES = ["vmem table 4 MB", "pallas VMEM take [4MB] Q=2^17"]
 # 46.7 Mbp) most live intervals span a row or two
 EXTEND_STEP = 20
 # the larger cases, where fixed costs amortise: gather_rows at the main
-# path's table and table_take at the probes' 1 MB table, 2^20 rows each
+# path's table, table_take at the probes' 1 MB table and onehot_gather at
+# the probe's 2,048 rows, 2^20 rows each
 LARGE_QUERIES = 1 << 20
+# onehot_gather's table of the first R that its first design refused, and
+# the rounding's edge words, in its first and last rows
+ONEHOT_WIDE_ROWS = 7_233
+ONEHOT_EDGE_WORDS = [0, 1, (1 << 24) + 1, (1 << 25) + 3, 0x7FFFFFFF,
+                     0x80000001, 0xFFFFFF7F, 0xFFFFFFFF]
 # --gather-only's sweeps of the plans: gather_rows' rows a tile (phase 4b),
 # table_take's slices of the 1 MB table and groups of a launch ("most": one
 # block an SM; phase 2b)
@@ -809,15 +821,22 @@ def device_ms(fn, calls=QUEUED_CALLS, before=None):
 def host_ms(fn, rounds=15):
     """Median host time to issue one call (the floor of a single call's
     event-timed ms)."""
+    return host_ms_turns([fn], rounds)[0]
+
+
+def host_ms_turns(fns, rounds=15):
+    """:func:`host_ms` of each function, the calls taken in turns (a, b,
+    b, a, ...)."""
     import torch
-    times = []
-    for _ in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        for i in range(len(fns)) if r % 2 == 0 else reversed(range(len(fns))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[i]()
+            times[i].append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return statistics.median(times) * 1e3
+    return [statistics.median(t) * 1e3 for t in times]
 
 
 def device_ms_turns(fns, before=None):
@@ -837,11 +856,13 @@ def launch_floor_ms():
 
 
 class Baseline:
-    """The earlier sources of gather_rows.cu and table_take.cu in ``path``
-    (with their C interfaces ``hsa_gather_rows(tab, nb, w, q, nq, pipe,
-    chunk, out, stream)`` and ``hsa_table_take(tab, nb, q, nq, out,
-    stream)``: ``git show 93331e4:hsa_tpu_torch/csrc/<name>.cu``), built
-    by kernels/build.py beside the current kernels."""
+    """The earlier sources of gather_rows.cu, table_take.cu and
+    onehot_gather.cu in ``path`` (with their C interfaces
+    ``hsa_gather_rows(tab, nb, w, q, nq, pipe, chunk, out, stream)``,
+    ``hsa_table_take(tab, nb, q, nq, out, stream)`` and
+    ``hsa_onehot_gather(tab, R, q, Q, out, stream)``: ``git show
+    93331e4:hsa_tpu_torch/csrc/<name>.cu``), built by kernels/build.py
+    beside the current kernels."""
 
     CHUNK = 256                  # the earlier wrapper's default chunk
 
@@ -857,11 +878,15 @@ class Baseline:
         def take(lib):
             lib.hsa_table_take.argtypes = [vp, i, vp, i, vp, vp]
             lib.hsa_table_take.restype = i
+
+        def onehot(lib):
+            lib.hsa_onehot_gather.argtypes = [vp, i, vp, i, vp, vp]
+            lib.hsa_onehot_gather.restype = i
         self.kernels = {
-            "gather_rows (baseline)": CudaKernel(
-                os.path.abspath(os.path.join(path, "gather_rows.cu")), rows),
-            "table_take (baseline)": CudaKernel(
-                os.path.abspath(os.path.join(path, "table_take.cu")), take)}
+            f"{name} (baseline)": CudaKernel(
+                os.path.abspath(os.path.join(path, f"{name}.cu")), declare)
+            for name, declare in (("gather_rows", rows), ("table_take", take),
+                                  ("onehot_gather", onehot))}
 
     @staticmethod
     def _run(name, launch, tab, q):
@@ -886,14 +911,24 @@ class Baseline:
             tab.data_ptr(), tab.shape[0], q.data_ptr(), q.numel(), out, st),
             tab, q)
 
+    def onehot_gather(self, tab, q):
+        fn = self.kernels["onehot_gather (baseline)"].lib().hsa_onehot_gather
+        return self._run("onehot_gather (baseline)", lambda out, st: fn(
+            tab.data_ptr(), tab.shape[0], q.data_ptr(), q.numel(), out, st),
+            tab, q)
+
 
 def gather_bound(kernel, tab, q):
-    """(bound ms, what binds it, bytes ms, operations ms, bytes ms at 64
-    bytes a row read): bytes are the indices read, the rows written and one
-    32-byte sector per 32 bytes of each distinct row read, over 3.35 TB/s;
-    operations (onehot_gather only) the one-hot product exactly in int8, 2 x
-    Q x R x 32, over the int8 tensor-core peak.  The last counts each
-    distinct row of 32 bytes read as 64, the device memory's access
+    """(bound ms, bytes ms at 64 bytes a row read, dense product ms or
+    None).  The bound is the bytes: the indices read, the rows written and
+    one 32-byte sector per 32 bytes of each distinct row read, over 3.35
+    TB/s.  For onehot_gather too: its one-hot product is sparse (one 1 a
+    row), and a sparse product is bounded by what its inputs need, here the
+    gather's bytes and no arithmetic.  The dense one-hot product done
+    exactly in int8 (2 x Q x R x 32 operations over the int8 tensor-core
+    peak, what a tensor-core design does) is returned beside the bound for
+    onehot_gather, not as the bound.  The bytes at 64 bytes a row count
+    each distinct row of 32 bytes read as 64, the device memory's access
     granularity for a random row (printed beside the bound, not the
     bound)."""
     import torch
@@ -902,22 +937,24 @@ def gather_bound(kernel, tab, q):
     distinct = torch.unique(q.clamp(0, nb - 1)).numel()
     t_bytes = (4 * nq + 4 * w * nq + 4 * w * distinct) / HBM_BYTES_S
     t_64 = (4 * nq + 4 * w * nq + max(4 * w, 64) * distinct) / HBM_BYTES_S
-    t_ops = (2 * nq * nb * 32 / INT8_TC_OPS_S
-             if kernel == "onehot_gather" else 0.0)
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", t_bytes * 1e3,
-            t_ops * 1e3, t_64 * 1e3)
+    dense = (2 * nq * nb * 32 / INT8_TC_OPS_S * 1e3
+             if kernel == "onehot_gather" else None)
+    return t_bytes * 1e3, t_64 * 1e3, dense
 
 
 def gather_compare(name, kernel, run_k, run_p, run_l, tab, q, expected,
-                   shape, replaces, before=None, variants=None, base=None):
+                   shape, replaces, before=None, variants=None, base=None,
+                   bare=None):
     """Kernel == plain == ``expected`` exactly and the library call the same
     function, then median ms of the three in turns and their device ms
     (with ``before`` ahead of each call, outside both), the kernel's host ms
     per launch and the bound, beside the launch floor.  ``variants`` (label
     -> (call, its output as int32 words)) are other library calls of the
     same function, checked and timed in the same turns; ``base``, the
-    baseline kernel on the same inputs, checked and timed in turns too."""
+    baseline kernel on the same inputs, checked and timed in turns too;
+    ``bare``, a launch of the same kernel straight through ctypes (no
+    wrapper, its output preallocated and returned), checked, and its host
+    ms per launch taken in turns with the wrapper's."""
     import torch
     from hsa_tpu_torch.kernels import gather
     k_out, p_out = run_k(), run_p()
@@ -941,13 +978,15 @@ def gather_compare(name, kernel, run_k, run_p, run_l, tab, q, expected,
     for label, (fn, words) in variants.items():
         if not torch.equal(words(fn()), p_out):
             fail(f"{label} ({kernel} {name}) computes another function")
+    if bare is not None and not torch.equal(bare(), p_out):
+        fail(f"the bare launch of {kernel} {name} differs from plain")
     fns = [run_k, run_p, run_l] + [fn for fn, _ in variants.values()]
     times = time_turns(fns, before=before)
     ms, plain_ms, library_ms = times[:3]
     dev = device_ms_turns(fns, before=before)
-    bound_ms, bound_by, bytes_ms, ops_ms, b64_ms = gather_bound(kernel, tab,
-                                                                q)
-    h_ms = host_ms(run_k)
+    bound_ms, b64_ms, dense_ms = gather_bound(kernel, tab, q)
+    h_ms, bare_ms = host_ms_turns([run_k, bare]) if bare else (
+        host_ms(run_k), None)
     floor = launch_floor_ms()
     extra = {}
     if kernel == "table_take":
@@ -958,11 +997,13 @@ def gather_compare(name, kernel, run_k, run_p, run_l, tab, q, expected,
     print(f"{kernel} {name} ({shape}): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library {library_ms:.4f} ms; device time "
           f"{dev[0]:.4f} / {dev[1]:.4f} / {dev[2]:.4f} ms (launch floor "
-          f"{floor:.4f}); host time per launch {h_ms:.4f} ms; bound "
-          f"{bound_ms:.4g} ms ({bound_by}; bytes {bytes_ms:.4g} ms, at 64 "
-          f"bytes a row read {b64_ms:.4g} ms"
-          + (f", int8 tensor cores {ops_ms:.4g} ms" if ops_ms else "")
-          + f"; {ms / bound_ms:.1f}x, device {dev[0] / bound_ms:.1f}x)"
+          f"{floor:.4f}); host time per launch {h_ms:.4f} ms"
+          + (f" (a bare ctypes launch {bare_ms:.4f} ms)" if bare else "")
+          + f"; bound {bound_ms:.4g} ms (bytes; at 64 bytes a row read "
+          f"{b64_ms:.4g} ms; {ms / bound_ms:.1f}x, device "
+          f"{dev[0] / bound_ms:.1f}x)"
+          + (f"; the dense int8 one-hot product, not a bound, "
+             f"{dense_ms:.4g} ms" if dense_ms else "")
           + (f"; plan {extra['plan']}, beyond the bound: staging "
              f"{extra['staging_bytes']} bytes, indices scanned again "
              f"{extra['index_rescan_bytes']} bytes" if extra else "")
@@ -973,9 +1014,10 @@ def gather_compare(name, kernel, run_k, run_p, run_l, tab, q, expected,
                 queries=q.numel(), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, device_ms=dev[0],
                 plain_device_ms=dev[1], library_device_ms=dev[2],
-                launch_floor_ms=floor, host_ms=h_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bound_bytes_ms=bytes_ms,
-                bound_ops_ms=ops_ms, bytes_64_ms=b64_ms, max_abs_err=err,
+                launch_floor_ms=floor, host_ms=h_ms,
+                bare_launch_host_ms=bare_ms, bound_ms=bound_ms,
+                bound_by="bytes", dense_int8_product_ms=dense_ms,
+                bytes_64_ms=b64_ms, max_abs_err=err,
                 **extra,
                 library_variants={
                     label: dict(ms=times[i], device_ms=dev[i])
@@ -1009,22 +1051,106 @@ def probe_case(case, capacity, dev="cuda", baseline=None):
             fail("table_take counted a launch for a refused table")
         return dict(case=case.label, replaces=case.replaces, shape=shape,
                     refused=True)
-    base = None
     if case.kernel == "onehot_gather":
-        oh = (torch.arange(nb, device=dev)[None, :] == q[:, None]).float()
-        tabf = gather.words_to_float(tab)
-        run_l = lambda: torch.matmul(oh, tabf)                 # noqa: E731
-    else:
-        run_l = lambda: torch.index_select(tab, 0, q)          # noqa: E731
+        return onehot_compare(case.label, tab, q, case.expected(tab_np, q_np),
+                              case.replaces, baseline)
+    base = None
     if baseline and case.kernel == "gather_rows":
         base = lambda: baseline.gather_rows(                   # noqa: E731
             tab, q, case.pipe, case.chunk or Baseline.CHUNK)
     elif baseline and case.kernel == "table_take":
         base = lambda: baseline.table_take(tab, q)             # noqa: E731
     return gather_compare(case.label, case.kernel, lambda: case.run(tab, q),
-                          lambda: case.run(tab, q, plain=True), run_l, tab, q,
+                          lambda: case.run(tab, q, plain=True),
+                          lambda: torch.index_select(tab, 0, q), tab, q,
                           case.expected(tab_np, q_np), shape, case.replaces,
                           base=base)
+
+
+def onehot_bare(tab, q):
+    """A launch of onehot_gather's kernel straight through ctypes, as the
+    wrapper makes it but with its output, arguments and stream made once:
+    a call that returns the output."""
+    import torch
+    from hsa_tpu_torch.kernels import gather
+    fn = gather.ONEHOT_GATHER.lib().hsa_onehot_gather
+    out = torch.empty((q.numel(), 8), dtype=torch.int32, device=tab.device)
+    plan = gather.onehot_plan(q.numel())
+    args = (tab.data_ptr(), tab.shape[0], q.data_ptr(), q.numel(), plan.tile,
+            plan.threads, plan.grid, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        err = fn(*args)
+        if err:
+            fail(f"the bare onehot_gather launch failed: CUDA error {err}")
+        return out
+    return launch
+
+
+def onehot_compare(name, tab, q, expected, replaces, baseline=None):
+    """onehot_gather at ``tab``, ``q`` through :func:`gather_compare`:
+    the yardstick ``torch.matmul`` over a float32 one-hot of the clamped
+    indices built beforehand (freed on return), the bare ctypes launch
+    beside the wrapper, and the ``baseline`` kernel, if given.  Then the
+    single calls of the wrapper, the bare launch and the yardstick once
+    more, in turns by themselves (``alone_ms``), with no plain version's
+    call between them."""
+    import torch
+    from hsa_tpu_torch.kernels import gather
+    nb = tab.shape[0]
+    oh = (torch.arange(nb, device=tab.device)[None, :] ==
+          q.clamp(0, nb - 1)[:, None]).float()
+    tabf = gather.words_to_float(tab)
+    base = None
+    if baseline:
+        base = lambda: baseline.onehot_gather(tab, q)          # noqa: E731
+    run_k = lambda: gather.onehot_gather(q, tab)               # noqa: E731
+    run_l = lambda: torch.matmul(oh, tabf)                     # noqa: E731
+    bare = onehot_bare(tab, q)
+    row = gather_compare(
+        name, "onehot_gather", run_k,
+        lambda: gather.onehot_gather_plain(q, tab), run_l, tab, q, expected,
+        f"tab [{nb}, 8] q [{q.numel()}]", replaces, base=base, bare=bare)
+    alone = dict(zip(("kernel", "bare launch", "library"),
+                     time_turns([run_k, bare, run_l])))
+    print("  single calls in turns by themselves (no plain version between "
+          "them): " + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items()))
+    row["alone_ms"] = alone
+    del oh, tabf
+    torch.cuda.empty_cache()
+    return row
+
+
+def onehot_more_phase(dev="cuda", baseline=None):
+    """onehot_gather beyond the probe's two launches, each held and timed as
+    they are: R = ONEHOT_WIDE_ROWS at 16,384 queries (above the first
+    design's limit, so no baseline; full-range words with the rounding's
+    edge words, and indices past both ends), then R = 2,048 at
+    LARGE_QUERIES queries, whose one-hot operands (8 GiB for the yardstick,
+    8 GiB and 2 GiB bool inside the plain version) are freed in turn."""
+    import torch
+    from hsa_tpu_torch.index.layout import words_to_device
+    from hsa_tpu_torch.tools._cases import (onehot_expected, random_queries,
+                                            random_table)
+    rows = []
+    nb = ONEHOT_WIDE_ROWS
+    rs = np.random.RandomState(13)
+    tab_np = rs.randint(0, 2 ** 32, (nb, 8), dtype=np.int64).astype(np.uint32)
+    tab_np[0] = tab_np[nb - 1] = ONEHOT_EDGE_WORDS
+    q_np = rs.randint(0, nb, 1 << 14).astype(np.int32)
+    q_np[:4] = [-3, nb, nb - 1, 0]
+    tab, q = words_to_device(tab_np, dev), torch.from_numpy(q_np).to(dev)
+    rows.append(onehot_compare(
+        f"R={nb} Q=16K, full-range words", tab, q,
+        onehot_expected(tab_np, q_np),
+        "above the first design's row limit"))
+    tab_np, q_np = random_table(2048, 8), random_queries(2048, LARGE_QUERIES)
+    tab, q = words_to_device(tab_np, dev), torch.from_numpy(q_np).to(dev)
+    rows.append(onehot_compare(
+        f"R=2048 Q={LARGE_QUERIES:,}", tab, q,
+        onehot_expected(tab_np, q_np), "larger case", baseline))
+    return rows
 
 
 def probe_phase(dev="cuda", baseline=None, sweep=False):
@@ -1059,6 +1185,10 @@ def probe_phase(dev="cuda", baseline=None, sweep=False):
     t0 = time.perf_counter()
     rows["table_take (larger case)"] = take_large_phase(dev, baseline, sweep)
     print(f"table_take's larger case took "
+          f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    rows["onehot_gather (more cases)"] = onehot_more_phase(dev, baseline)
+    print(f"onehot_gather's two more cases took "
           f"{time.perf_counter() - t0:.3f} s")
     return launches, rows
 
@@ -1253,6 +1383,8 @@ def gather_rows_json(launches, rows, main_table=None, main_launches=None):
             row["main_table"] = main_table
         if name == "table_take":
             row["larger_case"] = rows["table_take (larger case)"]
+        if name == "onehot_gather":
+            row["more_cases"] = rows["onehot_gather (more cases)"]
         row["shapes"] = rows[name]
         out.append(row)
     return out
@@ -3653,9 +3785,10 @@ def main():
                          "table_take's plans; prints their kernel rows and "
                          "no result line")
     ap.add_argument("--baseline", metavar="DIR",
-                    help="also build the earlier gather_rows.cu and "
-                         "table_take.cu in DIR and hold and time them in "
-                         "turns with the current ones in phases 2b and 4b")
+                    help="also build the earlier gather_rows.cu, "
+                         "table_take.cu and onehot_gather.cu in DIR and hold "
+                         "and time them in turns with the current ones in "
+                         "phases 2b and 4b")
     ap.add_argument("--oracle-only", action="store_true",
                     help="only phases 1 and 12 (the card's records against "
                          "the oracle); prints no result line")

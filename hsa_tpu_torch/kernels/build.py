@@ -56,10 +56,11 @@ class CudaKernel:
         self.build_s = None              # seconds spent in nvcc, None if cached
 
     def lib(self):
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._build()
-            return self._lib
+        if self._lib is None:            # the lock only until the first build
+            with self._lock:
+                if self._lib is None:
+                    self._lib = self._build()
+        return self._lib
 
     def count_launch(self, shape=None):
         with self._lock:

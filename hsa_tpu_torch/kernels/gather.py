@@ -20,8 +20,11 @@ mechanism moves such rows fastest; these kernels ask the same of the card:
   launch (:func:`table_take_capacity`): that is the card's answer to
   ``gather_probe2.py``'s VMEM capacity bisect.
 - :func:`onehot_gather` (``csrc/onehot_gather.cu``): ``uint32(float32(
-  tab[q]))``, the one-hot product of ``gather_probe2.py:210`` done exactly on
-  the tensor cores (int8 ``mma.sync`` over the table's byte planes).
+  tab[q]))``, the function of ``gather_probe2.py:210``'s one-hot product.
+  A one-hot row holds one 1, so the card computes the gather itself: a
+  block a tile of queries, two lanes a row, each row read from the L1 and
+  L2 caches where the table lies and rounded through float32; any number
+  of rows.
 
 Tables are int32 bit patterns of 32-bit words (the port's convention,
 ``index/layout.py``), indices int32.  Every index is clamped to the table,
@@ -31,13 +34,14 @@ Each wrapper runs the plain version only for CPU tensors.  For CUDA tensors
 it builds its kernel at first use and launches it on the current stream, or
 raises; ``GATHER_ROWS``, ``TABLE_TAKE`` and ``ONEHOT_GATHER`` each count
 their own launches.  No path of the aligner calls them: they are the
-probes' kernels.  The launch plans of the first two are made here
-(:func:`rows_plan`, :func:`take_plan`) and checked by the C functions.
+probes' kernels.  Their launch plans are made here (:func:`rows_plan`,
+:func:`take_plan`, :func:`onehot_plan`) and checked by the C functions.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -57,6 +61,8 @@ SLICES = (1, 2, 4, 8, 16)            # table_take's slices of a table
 # table_take adds a group (which stages the table once more) for every
 # TAKE_ROWS_A_THREAD queries that each thread of a block would otherwise scan
 TAKE_ROWS_A_THREAD = 2
+ONEHOT_LANES = 2                     # onehot_gather's lanes a row (its source)
+ONEHOT_TILE = 128                    # onehot_gather's rows a block
 M32 = 0xFFFFFFFF
 
 
@@ -76,10 +82,8 @@ def _declare_take(lib):
 
 def _declare_onehot(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.hsa_onehot_gather.argtypes = [vp, i, vp, i, vp, vp]
+    lib.hsa_onehot_gather.argtypes = [vp, i, vp, i, i, i, i, vp, vp]
     lib.hsa_onehot_gather.restype = ctypes.c_int
-    lib.hsa_onehot_gather_max_rows.argtypes = []
-    lib.hsa_onehot_gather_max_rows.restype = ctypes.c_int
 
 
 GATHER_ROWS = CudaKernel("gather_rows.cu", _declare_rows)
@@ -115,9 +119,16 @@ def check_aligned(name, *tensors):
 
 
 def _launch(name, fn, out, args):
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(*args, stream)
+    """``fn(*args, stream)`` on the current stream of ``out``'s card, under
+    a device guard only when that card is not the current one; raises on a
+    CUDA error.  The stream is the raw handle, as torch's own compiled
+    kernels take it, with no ``torch.cuda.Stream`` built."""
+    idx = out.get_device()
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -289,26 +300,41 @@ def onehot_gather_plain(q, tab):
     return float_to_words(oh @ words_to_float(tab))
 
 
+@dataclass(frozen=True)
+class OnehotPlan:
+    """One launch of ``onehot_gather.cu``: ``grid`` blocks of ``threads``
+    threads, each block gathering a tile of ``tile`` rows (ONEHOT_LANES
+    lanes a row)."""
+    tile: int
+    threads: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)    # plans are immutable: built once a Q
+def onehot_plan(nq: int) -> OnehotPlan:
+    """The launch of :func:`onehot_gather` for ``nq`` >= 1 queries: tiles of
+    ONEHOT_TILE rows (fewer when ``nq`` is), a block each."""
+    tile = min(ONEHOT_TILE, nq)
+    return OnehotPlan(tile, -(-ONEHOT_LANES * tile // 32) * 32,
+                      -(-nq // tile))
+
+
 def onehot_gather(q, tab):
     """``uint32(float32(tab[clamp(q)]))`` for ``q`` int32 [Q] and ``tab``
-    int32 [R, 8]: [Q, 8] int32 bit patterns.  On the card R may be at most
-    the rows whose byte planes fit in a block's shared memory (the kernel
-    library says how many); a larger table raises ``ValueError`` before
-    launch."""
+    int32 [R, 8]: [Q, 8] int32 bit patterns.  On the card a block gathers a
+    tile of rows (:func:`onehot_plan`) and rounds each word through
+    float32; R has no limit."""
     _check("onehot_gather", tab, q, (8,))
-    R = tab.shape[0]
-    if tab.device.type == "cpu":
+    if not tab.is_cuda:
         return onehot_gather_plain(q, tab)
-    lib = ONEHOT_GATHER.lib()
-    max_rows = lib.hsa_onehot_gather_max_rows()
-    if R > max_rows:
-        raise ValueError(f"onehot_gather: R={R} above {max_rows}, the rows "
-                         "whose byte planes fit in a block's shared memory")
-    out = torch.empty((q.shape[0], 8), dtype=torch.int32, device=tab.device)
-    if q.shape[0] == 0:
+    R, nq = tab.shape[0], q.shape[0]
+    out = tab.new_empty((nq, 8))
+    if nq == 0:
         return out
     check_aligned("onehot_gather", tab, out)
-    _launch("onehot_gather", lib.hsa_onehot_gather, out,
-            (tab.data_ptr(), R, q.data_ptr(), q.shape[0], out.data_ptr()))
-    ONEHOT_GATHER.count_launch((R, q.shape[0]))
+    plan = onehot_plan(nq)
+    _launch("onehot_gather", ONEHOT_GATHER.lib().hsa_onehot_gather, out,
+            (tab.data_ptr(), R, q.data_ptr(), nq, plan.tile, plan.threads,
+             plan.grid, out.data_ptr()))
+    ONEHOT_GATHER.count_launch((R, nq))
     return out

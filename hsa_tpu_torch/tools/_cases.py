@@ -43,10 +43,18 @@ class Case:
     def expected(self, tab: np.ndarray, q: np.ndarray) -> np.ndarray:
         """The probe's own check on the host: ``tab[q]`` (for the one-hot
         product, rounded through float32 as its body does)."""
-        rows = tab.astype(np.uint32)[np.clip(q, 0, tab.shape[0] - 1)]
         if self.kernel == "onehot_gather":
-            rows = rows.astype(np.float32).astype(np.uint32)
-        return rows
+            return onehot_expected(tab, q)
+        return tab.astype(np.uint32)[np.clip(q, 0, tab.shape[0] - 1)]
+
+
+def onehot_expected(tab: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """``tab[clamp(q)]`` rounded through float32 and back, saturating at
+    2^32 - 1 (numpy's own cast of a float32 of 2^32 to uint32 is
+    undefined)."""
+    f = tab.astype(np.uint32)[np.clip(q, 0, tab.shape[0] - 1)].astype(
+        np.float32).astype(np.float64)
+    return np.minimum(f, 2.0 ** 32 - 1).astype(np.uint32)
 
 
 def random_table(nb: int, w: int) -> np.ndarray:

@@ -6,8 +6,8 @@
   dmapipe      per-query 32B-row gather (gather_rows; the TPU's PIPE 8 and
                32 are kept as labels: the card's kernel is the same launch)
   rowloop      row loads from a table staged on chip (table_take)
-  onehot       one-hot gather on the tensor cores from a staged chunk
-               (onehot_gather)
+  onehot       the one-hot product's gather, rounded through float32
+               (onehot_gather: the gather itself, no product on the card)
   vmemsize     the largest table the chip can stage (table_take; coarse)
 
 Usage: python -m hsa_tpu_torch.tools.gather_probe2 [--device cuda|cpu]
@@ -114,8 +114,9 @@ def test_rowloop(dev):
 
 
 def test_onehot(dev):
-    # one-hot [Q, R] x [R, 8] on the tensor cores, exact (int8 byte planes);
-    # measures the ideal-case rate ONLY (bucketing cost excluded)
+    # the function of one-hot [Q, R] x [R, 8] (the TPU's MXU product), which
+    # the card computes as the gather it is; measures the ideal-case rate
+    # ONLY (bucketing cost excluded)
     for case in KERNEL_CASES["onehot"]:
         tab_np, q_np, tab, q = case.tensors(dev)
         Q, R = len(q_np), len(tab_np)

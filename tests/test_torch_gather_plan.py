@@ -1,9 +1,12 @@
-"""The launch plans of the card's two row-gather kernels
+"""The launch plans of the card's three row-gather kernels
 (``hsa_tpu_torch.kernels.gather``: ``rows_plan`` for ``csrc/gather_rows.cu``,
-``take_plan`` for ``csrc/table_take.cu``) within the card's limits, and a
-numpy emulation of each kernel's walk (a block a tile of gather_rows, its
-lanes' pieces of a warp's rows; slices and groups of table_take) writing
-every output row exactly once with ``tab[clamp(q)]``.
+``take_plan`` for ``csrc/table_take.cu``, ``onehot_plan`` for
+``csrc/onehot_gather.cu``) within the card's limits, and a numpy emulation
+of each kernel's walk (a block a tile of gather_rows, its lanes' pieces of
+a warp's rows; slices and groups of table_take; onehot_gather's tiles, two
+lanes a row, the shuffled index and the rounding epilogue) writing every
+output row exactly once with ``tab[clamp(q)]`` (rounded through float32
+for onehot_gather).
 
 The kernels themselves run only on the card (``chip_smoke.py`` phases 2b and
 4b hold every launch against the plain version); these tests reach what
@@ -41,6 +44,10 @@ def test_constants_match_the_sources():
     assert _source_constant("table_take.cu", "kRowBytes") == 32
     assert _source_constant("table_take.cu", "kMaxCluster") == \
         gather.SLICES[-1]
+    assert _source_constant("onehot_gather.cu", "kMaxThreads") == \
+        gather.MAX_THREADS
+    assert _source_constant("onehot_gather.cu", "kLanesARow") == \
+        gather.ONEHOT_LANES
 
 
 @pytest.mark.parametrize("w", gather.ROW_WORDS)
@@ -191,3 +198,93 @@ def test_table_take_walk_writes_each_row_once(nb):
             out, writes = emulate_table_take(tab, q, plan)
             np.testing.assert_array_equal(writes, 1)
             np.testing.assert_array_equal(out, tab[np.clip(q, 0, nb - 1)])
+
+
+ONEHOT_NQ = [1, 15, 16, 17, 255, 257, 16_384, 1 << 20]
+# the rounding's edge words (tests/test_torch_gather_probe.py's
+# test_onehot_plain_rounds_through_float32)
+EDGE_WORDS = [0, 1, (1 << 24) + 1, (1 << 25) + 3, 0x7FFFFFFF, 0x80000001,
+              0xFFFFFF7F, 0xFFFFFFFF]
+
+
+@pytest.mark.parametrize("nq", ONEHOT_NQ)
+def test_onehot_plan_within_limits(nq):
+    """Every plan within a block's threads and the C function's checks:
+    tiles of ONEHOT_TILE rows (fewer for fewer queries), ONEHOT_LANES lanes
+    a row rounded up to a warp; 128 blocks of 256 threads, one wave on the
+    132 SMs, at the probe's 16,384 queries."""
+    p = gather.onehot_plan(nq)
+    assert p.tile == min(gather.ONEHOT_TILE, nq) >= 1
+    lanes = gather.ONEHOT_LANES * p.tile
+    assert p.threads % 32 == 0 and lanes <= p.threads < lanes + 32
+    assert p.threads <= gather.MAX_THREADS
+    assert p.tile <= gather.MAX_THREADS // gather.ONEHOT_LANES
+    assert p.grid == -(-nq // p.tile)
+    assert (p.grid - 1) * p.tile < nq <= p.grid * p.tile
+    if nq == 16_384:
+        assert (p.grid, p.threads) == (128, 256) and p.grid <= SMS
+
+
+def round_f32(words):
+    """uint32 -> float32 (nearest, ties to even) -> uint32, saturating at
+    2^32 - 1: __float2uint_rn(__uint2float_rn(w))."""
+    f = words.astype(np.uint32).astype(np.float32).astype(np.float64)
+    return np.minimum(f, 2.0 ** 32 - 1).astype(np.int64)
+
+
+def emulate_onehot_gather(tab, q, plan):
+    """onehot_gather.cu's walk in numpy: block b takes tile b (n rows);
+    thread t handles row t / 2 of the tile, half t % 2 of it (words 4 x
+    half .. 4 x half + 3); lane l < 16 of a warp loads the index of the
+    warp's row l when the tile has it, and every lane takes lane l / 2's by
+    shuffle (0 from a lane that loaded nothing), clamped to the table; a
+    lane whose row is in the tile reads its half row, rounds each word
+    through float32 and writes it.  Returns (out, times each output word
+    was written)."""
+    nb = len(tab)
+    nq = len(q)
+    lanes = gather.ONEHOT_LANES
+    words = 8 // lanes
+    out = np.full((nq, 8), -1, np.int64)
+    writes = np.zeros((nq, 8), np.int64)
+    lane = np.arange(32)
+    for blk in range(plan.grid):
+        t0 = blk * plan.tile
+        n = min(plan.tile, nq - t0)
+        for w0 in range(0, plan.threads, 32):
+            wrow0 = w0 // lanes
+            raw = np.where((lane < 32 // lanes) & (wrow0 + lane < n),
+                           q[np.minimum(t0 + wrow0 + lane, nq - 1)], 0)
+            r = np.clip(raw[lane // lanes], 0, nb - 1)      # the shuffle
+            row = (w0 + lane) // lanes
+            half = lane % lanes
+            for li in np.flatnonzero(row < n):
+                cols = slice(words * half[li], words * (half[li] + 1))
+                out[t0 + row[li], cols] = round_f32(tab[r[li], cols])
+                writes[t0 + row[li], cols] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("nq", [1, 15, 16, 17, 255, 257, 1_000])
+def test_onehot_walk_writes_each_word_once(nq):
+    """The emulated walk writes every output word once, equal to
+    ``onehot_gather_plain`` (the one-hot product in float32), with the
+    clamped indices -3 and R and the rounding's edge words in the table."""
+    rs = np.random.RandomState(nq)
+    nb = 70
+    tab = rs.randint(0, 2 ** 32, (nb, 8), dtype=np.int64)
+    tab[0] = EDGE_WORDS
+    tab[nb - 1] = EDGE_WORDS[::-1]
+    q = rs.randint(0, nb, nq)
+    q[:4] = [-3, nb, 0, nb - 1][:nq]
+    out, writes = emulate_onehot_gather(tab, q, gather.onehot_plan(nq))
+    np.testing.assert_array_equal(writes, 1)
+    want = gather.onehot_gather_plain(
+        torch.from_numpy(q.astype(np.int32)),
+        torch.from_numpy(tab.astype(np.uint32).view(np.int32)))
+    np.testing.assert_array_equal(out, want.numpy().view(np.uint32))
+    edge = round_f32(np.array(EDGE_WORDS))
+    assert edge[7] == 0xFFFFFFFF and edge[2] == 1 << 24   # saturates, rounds
+    if nq >= 4:
+        np.testing.assert_array_equal(out[0], edge)       # -3 -> row 0
+        np.testing.assert_array_equal(out[1], edge[::-1])  # R -> row R - 1

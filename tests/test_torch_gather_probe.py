@@ -315,7 +315,8 @@ def test_onehot_plain_rounds_through_float32():
     np.testing.assert_array_equal(_u(gather.onehot_gather(_t(q), _t(tab))),
                                   want)
     assert want[0, 7] == 0xFFFFFFFF and want[0, 2] == 1 << 24
-    # the row limit is the card's shared memory; the plain version has none
+    # no row limit: neither the kernel nor the plain version has one (the
+    # first card design's byte planes held at most 7,232 rows)
     big = np.zeros((7233, 8), np.uint32)
     big[7232] = tab[0]
     np.testing.assert_array_equal(
