@@ -8,6 +8,8 @@ Run from the root of a checkout, on a machine with a CUDA card::
     python3 chip_smoke.py --probes-only           # phases 1 and 2b alone
     python3 chip_smoke.py --oracle-only           # phases 1 and 12 alone
     python3 chip_smoke.py --api-only              # phase 1, 3's index, 10c
+    python3 chip_smoke.py --select-only           # phase 1, select_topk alone
+    python3 chip_smoke.py --baseline DIR ...      # earlier kernels in turns
 
 It imports nothing of JAX and nothing of the JAX package: it drives the
 port through its CLI (``hsa_tpu_torch.cli``), its ``Aligner``, its kernel
@@ -32,7 +34,12 @@ any result.
    a 32-byte sector per pick, with the kernel's ratio to each.  Then
    the edges of the kernel's compaction and rank, each held exactly against
    plain and timed: every key valid; no valid key in every third column;
-   a width that is no multiple of 32.
+   a width that is no multiple of 32.  Then select_topk's host path at
+   four narrow shapes (the frontier and the merge over 1,024 and 16
+   columns): host ms a launch of the wrapper against the earlier host path
+   (a ``torch.cuda.device`` guard and ``torch.cuda.current_stream`` every
+   call) in turns, both exact, and the single call against ``torch.topk`` +
+   gathers.
 2b. The FM row-gather probes: the port's probe modules
    (``hsa_tpu_torch.tools``: gather_probe, gather_probe2, gather_probe3,
    sync_probe), driven as ``python -m ... --device cuda`` drives them at
@@ -233,7 +240,16 @@ any result.
    4,096 reads, ``cuda`` byte-equal to ``cpu`` (a process of its own,
    ``--handle-cpu``, beside the rest of the phase), and, not gated, how many
    records equal ``align --engine beam``'s; select_topk against plain at
-   every shape these routes and the dry runs' ranks launched it at.
+   every shape these routes and the dry runs' ranks launched it at.  The
+   tall select on a main path: ``Aligner(..., engine="beam",
+   device="cuda").align`` at ``beam_width=512`` and ``AlnOpt(max_diff=2)``
+   over phase 3's first 8,192 reads (16,384 columns: the tall kernel at
+   ``[4608, 16384]`` K=512 in each of 107 steps), with select_topk's count
+   set to 0 just before: the search seconds, the launches by shape (each held
+   against plain) and their summed device ms; the first 128 records
+   byte-equal to the oracle's (its 46.7 Mbp ``FMIndex``), and with
+   ``--baseline`` all records byte-equal to the same call's with the
+   earlier tall kernel in the wrapper's place.
 11. With ``--profile``, where the time goes on the warm card: each
    single-end batch's stream phases (search; readback + hits + locate;
    resolve) one after another with the device synchronised between them;
@@ -274,9 +290,13 @@ any result.
    glocal_screen's launches from ``oracle_align_pe`` (1 or more) held
    against plain at their shape; select_topk at every shape each route
    launched, then the tall frontier ``[4608, 16384]`` K=512 and the edges
-   of the kernel's tall variant (W=1820's frontier and merge, every key
-   valid, fewer valid keys than K, a ragged width), each exact and timed
-   against plain and ``torch.topk`` beside its bound.  Then, printed and not
+   of the tall kernel (W=1820's frontier and merge, every key valid, fewer
+   valid keys than K, a ragged width, scores over the whole 17-bit range,
+   every key of one score, low fields shuffled), each exact and timed
+   against plain and ``torch.topk`` beside its bound; for each tall shape
+   (here and wherever a path launched one) the plan (columns a block, list
+   entries), event and device ms of the three and, with
+   ``--baseline``, of the earlier tall kernel, in turns.  Then, printed and not
    gated, 64 reads of phase 3's kind at the CLI defaults (``AlnOpt()``,
    W=64) through both engines and the oracle: how many records are
    byte-equal, and the first differing field of the others.  Prints the
@@ -412,9 +432,12 @@ ORACLE_SE_W, ORACLE_PE_W = 512, 256
 ORACLE_FULL_W = 1820
 ORACLE_CLI_READS, ORACLE_CLI_W = 64, 64
 # the frontier select of a beam of W=512 at a batch's 16,384 columns, and the
-# edges of the kernel's tall variant (one column a block): the widest beam the
-# keys allow (9W < 2^14: W=1820) at both selects, every key valid, fewer valid
-# keys than K in every column, a width no multiple of 32
+# edges of the kernel's tall variant: the widest beam the keys allow (9W <
+# 2^14: W=1820) at both selects, every key valid, fewer valid keys than K in
+# every column, a width no multiple of 32 (no 16-byte loads), scores over the
+# whole 17-bit range (the select from the top bits), every key of one score
+# (the order from the low field alone, the boundary bin over a list), low
+# fields that are a shuffle of the rows, not the row
 ORACLE_TALL = dict(C=9 * 512, B=16_384, K=512, window=True)
 ORACLE_TALL_EDGES = [
     dict(C=9 * 1820, B=2_048, K=1820, window=True, name="edge: tall, W=1820"),
@@ -425,7 +448,48 @@ ORACLE_TALL_EDGES = [
     dict(ORACLE_TALL, B=2_048, valid=0.05,
          name="edge: tall, fewer valid keys than K"),
     dict(ORACLE_TALL, B=2_048 - 19, name="edge: tall, width no multiple of 32"),
+    dict(ORACLE_TALL, B=2_048, scores=(0, 0x1FFFC),
+         name="edge: tall, scores over the whole 17-bit range"),
+    dict(ORACLE_TALL, B=2_048, scores=(21, 22),
+         name="edge: tall, every key of one score"),
+    dict(ORACLE_TALL, B=2_048, low="shuffled",
+         name="edge: tall, low fields shuffled"),
 ]
+# the tall shapes that phases 12 and 10c launch (W=512 and W=1820 over 516
+# columns, W=1024 and W=1820 over 256), held and timed by --select-only
+TALL_PATH_SHAPES = [
+    dict(C=4608, B=516, K=512, window=True, name="phase 12, W=512"),
+    dict(C=16380, B=516, K=1820, window=True, name="phase 12, W=1820"),
+    dict(C=9132, B=516, K=32, window=False, name="phase 12, W=1820 merge"),
+    dict(C=9216, B=256, K=1024, window=True, name="phase 10c, W=1024"),
+    dict(C=16380, B=256, K=1820, window=True, name="phase 10c, W=1820"),
+    dict(C=9132, B=256, K=32, window=False, name="phase 10c, W=1820 merge"),
+]
+# the tall kernel's plans swept by --select-only at four shapes (the
+# frontier at 16,384 columns and three of phases 12 and 10c): columns a
+# block, list entries (None: the plan's)
+SELECT_SWEEP = [
+    (dict(ORACLE_TALL, name="sweep"), [(4, None), (8, 1024)]),
+    (dict(TALL_PATH_SHAPES[0], name="sweep"), [(8, None), (2, None)]),
+    (dict(TALL_PATH_SHAPES[3], name="sweep"), [(4, None), (1, None)]),
+    (dict(TALL_PATH_SHAPES[5], name="sweep"), [(4, None), (1, None)]),
+]
+# an SM's shared memory and what each resident block reserves of it
+SM_SMEM, BLOCK_RESERVED = 233_472, 1_024
+# select_topk's host path: narrow shapes where a single call is the host's
+# (aln's and the pooled beam's 1,024 columns, aln's tail batch of 16)
+HOST_SHAPES = [
+    dict(C=576, B=1_024, K=64, window=True, name="frontier, 1,024 columns"),
+    dict(C=352, B=1_024, K=32, window=False, name="merge, 1,024 columns"),
+    dict(C=576, B=16, K=64, window=True, name="frontier, 16 columns"),
+    dict(C=352, B=16, K=32, window=False, name="merge, 16 columns"),
+]
+# the tall select on a main path (phase 10c): a beam of W=512 over the first
+# TALL_BATCH_READS reads of phase 3 (both strands: [4608, 16384] K=512), the
+# oracle's records on its first TALL_BATCH_ORACLE
+TALL_BATCH_READS, TALL_BATCH_W, TALL_BATCH_ORACLE = 8_192, 512, 128
+# the --baseline kernels, for select_compare (set by main)
+BASELINE = None
 # the rest of the device API (phase 10c): search/fm.py's four functions on
 # API_RANKS ranks of phase 3's index (API_BLOCKS random 32-rank blocks' edges
 # among them); the oracle at phase 3's size on API_ORACLE_READS reads of
@@ -510,19 +574,25 @@ def build_kernels(baseline=None):
 
 
 # -- 2. kernel against plain ---------------------------------------------------
-def make_select_case(C, B, window, rs, device, valid=0.3, dead_every=0):
-    """Beam-like select inputs: unique row-tagged keys, a fraction ``valid``
-    of them valid; with ``dead_every``, no valid key in every such column."""
+def make_select_case(C, B, window, rs, device, valid=0.3, dead_every=0,
+                     scores=(0, 40), low="row"):
+    """Beam-like select inputs: unique keys, a fraction ``valid`` of them
+    valid, scores drawn from ``scores`` = [lo, hi), the low field the row
+    (``low="row"``, as the beam tags its keys) or a shuffle of the rows in
+    each column (``"shuffled"``); with ``dead_every``, no valid key in every
+    such column.  The window is drawn from [lo + (hi - lo) / 8, hi)."""
     import torch
     from hsa_tpu_torch.kernels.select import KEY_SH, SENT
     row = np.arange(C, dtype=np.int64)[:, None]
-    score = rs.randint(0, 40, (C, B)).astype(np.int64)
-    key = np.where(rs.rand(C, B) < valid, (score << KEY_SH) | row, SENT | row)
+    score = rs.randint(*scores, (C, B)).astype(np.int64)
+    tag = row if low == "row" else np.argsort(rs.rand(C, B), axis=0)
+    key = np.where(rs.rand(C, B) < valid, (score << KEY_SH) | tag, SENT | row)
     if dead_every:
         key[:, ::dead_every] = SENT | row
     pays = [rs.randint(-2 ** 31, 2 ** 31, (C, B), dtype=np.int64)
             for _ in range(3)]
-    win = rs.randint(5, 40, B) if window else None
+    lo, hi = scores
+    win = rs.randint(lo + (hi - lo) // 8, hi, B) if window else None
 
     def dev(a):
         return None if a is None else torch.from_numpy(
@@ -623,13 +693,19 @@ def select_key(case):
 
 def select_compare(case, rs, int32_ops_s):
     """Kernel == plain exactly on one seeded case, the library yardstick the
-    same function, then median ms of the three in turns beside the bounds."""
+    same function, then median ms of the three in turns beside the bounds.
+    Where the plan is the tall kernel's, also the plan, the device ms of the
+    three (queued calls, in turns) and, with ``--baseline``, the earlier
+    kernel (``BASELINE``) held exactly against plain and timed in turns with
+    them."""
     import torch
     from hsa_tpu_torch.kernels import select
     C, B, K, window = select_key(case)
     key, pays, win = make_select_case(
         C, B, window, rs, "cuda", valid=case.get("valid", 0.3),
-        dead_every=case.get("dead_every", 0))
+        dead_every=case.get("dead_every", 0),
+        scores=case.get("scores", (0, 40)), low=case.get("low", "row"))
+    plan = select._plan(C, B, K, select._sms(key.get_device()))
     run_k = lambda: select.select_topk(key, pays, K, window=win)   # noqa: E731
     run_p = lambda: select.select_topk_plain(key, pays, K, window=win)  # noqa: E731
     run_l = lambda: select_library(key, pays, K, window=win)       # noqa: E731
@@ -640,18 +716,40 @@ def select_compare(case, rs, int32_ops_s):
     if not torch.equal(lib_top[lib_top < select.SENT],
                        p_out[0][:K][p_out[0][:K] < select.SENT]):
         fail("the library yardstick computes another function")
+    fns = [run_k, run_p, run_l]
+    if plan.tall and BASELINE is not None:
+        fns.append(lambda: BASELINE.select_topk(key, pays, K, win))
+        b_out = fns[3]()
+        torch.cuda.synchronize()
+        compare_select(b_out, p_out)
     bound_ms, bound_by, sector_ms = select_bound_ms(
         key, K, len(pays), win, int32_ops_s)
-    ms, plain_ms, library_ms = time_turns([run_k, run_p, run_l])
+    times = time_turns(fns)
+    ms, plain_ms, library_ms = times[:3]
     shape = f"[{C}, {B}] K={K}" + (" window" if window else "")
-    print(f"select_topk {case['name']} {shape}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library (topk + gathers) "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-          f"{ms / bound_ms:.2f}x), with a 32-byte sector per pick "
-          f"{sector_ms:.4f} ms ({ms / sector_ms:.2f}x), max |err| {err}")
-    return dict(case=case["name"], shape=shape, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bound_sector_ms=sector_ms, max_abs_err=err)
+    row = dict(case=case["name"], shape=shape, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bound_sector_ms=sector_ms, max_abs_err=err)
+    line = (f"select_topk {case['name']} {shape}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library (topk + gathers) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{ms / bound_ms:.2f}x), with a 32-byte sector per pick "
+            f"{sector_ms:.4f} ms ({ms / sector_ms:.2f}x), max |err| {err}")
+    if not plan.tall:
+        line += f"; plan: {plan}"
+    if plan.tall:
+        dev = device_ms_turns(fns)
+        row.update(plan=str(plan), device_ms=dev[0], plain_device_ms=dev[1],
+                   library_device_ms=dev[2])
+        line += (f"\n  plan: {plan}; device ms: kernel {dev[0]:.4f} "
+                 f"({dev[0] / bound_ms:.2f}x the bound), plain {dev[1]:.4f}, "
+                 f"library {dev[2]:.4f}")
+        if len(fns) > 3:
+            row.update(baseline_ms=times[3], baseline_device_ms=dev[3])
+            line += (f"; baseline kernel {times[3]:.4f} ms, device "
+                     f"{dev[3]:.4f} ({dev[3] / dev[0]:.2f}x the kernel's)")
+    print(line)
+    return row
 
 
 def kernel_phase(seed, int32_ops_s):
@@ -698,6 +796,233 @@ def select_path_phase(path, launched, compared, seed, int32_ops_s):
                  f"{'with' if window else 'without'} a window no time")
         step.append(compared[max(keys, key=lambda k: (k[1], k[0]))])
     return step
+
+
+def tall_phase(seed, int32_ops_s, compared):
+    """The tall kernel at W=512's frontier over 16,384 columns and at its
+    edges (``ORACLE_TALL_EDGES``), each as select_compare holds it."""
+    rs = np.random.RandomState(seed + 15)
+    for case in [dict(ORACLE_TALL, name="tall frontier: W=512 at 16,384 "
+                                         "columns"), *ORACLE_TALL_EDGES]:
+        compared[select_key(case)] = select_compare(case, rs, int32_ops_s)
+
+
+def select_sweep_phase(seed):
+    """The tall kernel's plans (``SELECT_SWEEP``) at four shapes, each
+    launch exact against plain, device ms in turns with the plan of
+    ``_plan``."""
+    import torch
+    from hsa_tpu_torch.kernels import select
+    rs = np.random.RandomState(seed + 17)
+    for case, variants in SELECT_SWEEP:
+        C, B, K, window = select_key(case)
+        key, pays, win = make_select_case(C, B, window, rs, "cuda")
+        own = select._plan(C, B, K, select._sms(key.get_device()))
+        plans = [own] + [select.Plan(c, ls or own.ls) for c, ls in variants]
+        plans = [p for i, p in enumerate(plans) if p not in plans[:i]]
+        want = select.select_topk_plain(key, pays, K, window=win)
+        fns = []
+        for p in plans:
+            fn = (lambda p=p: select_launch(                     # noqa: E731
+                select.KERNEL, p.code, key, pays, K, win, None))
+            got = fn()
+            torch.cuda.synchronize()
+            compare_select(got, want)
+            fns.append(fn)
+        dev = device_ms_turns(fns)
+        shape = f"[{C}, {B}] K={K}" + (" window" if window else "")
+        for p, d in zip(plans, dev):
+            print(f"select_topk plan sweep {shape}: {p}"
+                  + (" (the plan)" if p == own else "")
+                  + f": device {d:.4f} ms, "
+                  f"{SM_SMEM // (select.tall_smem_bytes(p.cols, p.ls) + BLOCK_RESERVED)}"
+                  f" blocks an SM by shared memory")
+
+
+TRACE_PHASES = ("histogram pass", "select", "emit", "sort", "write-out")
+
+
+def select_phases(case, rs):
+    """Where a tall launch's time goes: each block's time in its histogram
+    pass, select (the bin and any further passes), emit, sort and
+    write-out, from the card's global timer
+    (``hsa_select_topk_trace``; the kernel waits on a barrier at each mark),
+    the mean over blocks, beside the launch's span."""
+    import torch
+    from hsa_tpu_torch.kernels import select
+    C, B, K, window = select_key(case)
+    key, pays, win = make_select_case(
+        C, B, window, rs, "cuda", valid=case.get("valid", 0.3),
+        scores=case.get("scores", (0, 40)), low=case.get("low", "row"))
+    plan = select._plan(C, B, K, select._sms(key.get_device()))
+    buf = torch.zeros((-(-B // plan.cols), 6),
+                      dtype=torch.int64, device="cuda")
+    lib = select.KERNEL.lib()
+    select.select_topk(key, pays, K, window=win)
+    torch.cuda.synchronize()
+    if lib.hsa_select_topk_trace(buf.data_ptr()):
+        fail("hsa_select_topk_trace failed")
+    try:
+        select.select_topk(key, pays, K, window=win)
+        torch.cuda.synchronize()
+    finally:
+        lib.hsa_select_topk_trace(None)
+    t = buf.cpu().numpy()
+    if (t == 0).any():
+        fail(f"select_topk's phase marks are missing at {case['name']}")
+    us = np.diff(t, axis=1).mean(axis=0) / 1e3
+    span = (t[:, 5].max() - t[:, 0].min()) / 1e3
+    print(f"select_topk phases {case['name']} [{C}, {B}] K={K} ({plan}): "
+          f"a block's mean us " + ", ".join(
+              f"{n} {u:.2f}" for n, u in zip(TRACE_PHASES, us))
+          + f"; the block {us.sum():.2f} us, the launch's span {span:.2f} us"
+          f" over {len(t)} blocks")
+
+
+def select_launch(kernel, code, key, payloads, K, window, accum):
+    """One launch of a build of select_topk.cu (``kernel``, a CudaKernel)
+    at the plan ``code`` (the C function's ``tx``) on the current stream,
+    counted on ``kernel``: the plan sweep's and the earlier source's."""
+    from hsa_tpu_torch.kernels.build import launch
+    C, B = key.shape
+    okeyd = key.new_empty((K + 1, B))
+    pouts = tuple(key.new_empty((K, B)) for _ in payloads)
+    pin = [p.data_ptr() for p in payloads] + [None] * (3 - len(payloads))
+    pout = [p.data_ptr() for p in pouts] + [None] * (3 - len(pouts))
+    launch("select_topk", kernel.lib().hsa_select_topk, key, (
+        key.data_ptr(), len(payloads), *pin, *pout,
+        window.data_ptr() if window is not None else None,
+        accum.data_ptr() if accum is not None else None,
+        okeyd.data_ptr(), C, B, K, code))
+    kernel.count_launch((C, B, K, window is not None))
+    return okeyd, pouts, okeyd[K:K + 1]
+
+
+def select_old_host(key, payloads, K, window):
+    """select_topk through the earlier host path: the plan made anew, the
+    outputs by ``torch.empty``, and a ``torch.cuda.device`` guard and
+    ``torch.cuda.current_stream`` around the launch, every call."""
+    import torch
+    from hsa_tpu_torch.kernels import select
+    payloads = tuple(payloads)
+    select._check(key, payloads, K, window, None)
+    C, B = key.shape
+    plan = select._plan.__wrapped__(C, B, K, select.SMS)
+    lib = select.KERNEL.lib()
+    okeyd = torch.empty((K + 1, B), dtype=torch.int32, device=key.device)
+    pouts = tuple(torch.empty((K, B), dtype=torch.int32, device=key.device)
+                  for _ in payloads)
+    pin = [p.data_ptr() for p in payloads] + [None] * (3 - len(payloads))
+    pout = [p.data_ptr() for p in pouts] + [None] * (3 - len(pouts))
+    with torch.cuda.device(key.device):
+        stream = torch.cuda.current_stream(key.device).cuda_stream
+        err = lib.hsa_select_topk(
+            key.data_ptr(), len(payloads), *pin, *pout,
+            window.data_ptr() if window is not None else None, None,
+            okeyd.data_ptr(), C, B, K, plan.code, stream)
+    if err:
+        fail(f"select_topk launch failed: CUDA error {err}")
+    select.KERNEL.count_launch((C, B, K, window is not None))
+    return okeyd, pouts, okeyd[K:K + 1]
+
+
+def select_host_phase(seed):
+    """select_topk's host path at narrow shapes (``HOST_SHAPES``): host ms
+    a launch of the wrapper against the earlier host path
+    (:func:`select_old_host`), in turns, both exact against plain; then the
+    wrapper's single call against ``torch.topk`` + gathers in turns."""
+    import torch
+    from hsa_tpu_torch.kernels import select
+    rs = np.random.RandomState(seed + 18)
+    rows = []
+    for case in HOST_SHAPES:
+        C, B, K, window = select_key(case)
+        key, pays, win = make_select_case(C, B, window, rs, "cuda")
+        run_k = lambda: select.select_topk(key, pays, K, window=win)  # noqa: E731
+        run_o = lambda: select_old_host(key, pays, K, win)           # noqa: E731
+        run_l = lambda: select_library(key, pays, K, window=win)     # noqa: E731
+        want = select.select_topk_plain(key, pays, K, window=win)
+        for out in (run_k(), run_o()):
+            torch.cuda.synchronize()
+            compare_select(out, want)
+        host_new, host_old = host_ms_turns([run_k, run_o], rounds=41)
+        ms, library_ms = time_turns([run_k, run_l], rounds=41)
+        shape = f"[{C}, {B}] K={K}" + (" window" if window else "")
+        print(f"select_topk host path {case['name']} {shape}: host ms a "
+              f"launch {host_new:.4f} (earlier host path {host_old:.4f}); "
+              f"single call {ms:.4f} ms against torch.topk + gathers "
+              f"{library_ms:.4f} ms")
+        rows.append(dict(shape=shape, host_ms=host_new,
+                         earlier_host_ms=host_old, ms=ms,
+                         library_ms=library_ms))
+    return rows
+
+
+def tall_batch_phase(prefix, reads, opt, want, seed, int32_ops_s, compared):
+    """The tall select on a main path: ``Aligner(prefix, opt, engine=
+    "beam", device="cuda").align`` at ``beam_width=TALL_BATCH_W`` over
+    ``reads`` (one batch), with select_topk's count set to 0 just before
+    the search.  Its records must equal ``want`` (the oracle's) on the
+    prefix, and with ``--baseline`` all of them must equal those of the same
+    call with the earlier tall kernel in the wrapper's place.  Prints the
+    search seconds, the launches by shape (held against plain) and their
+    summed device ms.  Returns (launches, select step rows)."""
+    import torch
+    from hsa_tpu_torch.kernels import select
+    from hsa_tpu_torch.pipeline import Aligner
+    route = f"10c tall batch: align --engine beam -W {TALL_BATCH_W}"
+    names, quals = handle_names(reads)
+    al = Aligner(prefix, opt, engine="beam", device="cuda")
+
+    def run():
+        torch.cuda.synchronize()
+        select.KERNEL.launches = 0
+        select.KERNEL.launch_shapes.clear()
+        t0 = time.perf_counter()
+        h = al._align_device(reads, beam_width=TALL_BATCH_W)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        recs = al._align_finish(h, names, quals, beam_width=TALL_BATCH_W)
+        return ([r.to_sam() for r in recs], search_s,
+                time.perf_counter() - t0, select.KERNEL.launches,
+                dict(select.KERNEL.launch_shapes))
+
+    got, search_s, wall, n_sel, shapes = run()
+    ld = np.asarray(al.last_overflow[0], np.int64)
+    print(f"{route}: {len(reads)} reads ({2 * len(reads)} columns), search "
+          f"{search_s:.3f} s, with resolve {wall:.3f} s on the card; "
+          f"select_topk launches {n_sel}; the beam dropped {int(ld.sum())} "
+          f"frontier states on {int((ld > 0).sum())} lanes")
+    oracle_compare(f"{route} (first {len(want)} reads)", got[:len(want)],
+                   want, ties_ok=False)
+    if n_sel == 0:
+        fail(f"{route}: select_topk was launched no time")
+    step = select_path_phase(route, shapes, compared, seed, int32_ops_s)
+    dev = sum(n * compared[k].get("device_ms", compared[k]["ms"])
+              for k, n in shapes.items())
+    print(f"{route}: the select launches' summed device time {dev:.3f} ms "
+          f"(launches x device ms at each shape; event ms where the plan is "
+          f"the tiled kernel's)")
+    if BASELINE is not None:
+        cur = select._select_topk_cuda
+
+        def earlier(key, payloads, K, window, drop_accum):
+            if not select._plan(*key.shape, K).tall:
+                return cur(key, payloads, K, window, drop_accum)
+            return BASELINE.select_topk(key, payloads, K, window, drop_accum)
+        select._select_topk_cuda = earlier
+        try:
+            base, b_search_s, _, _, _ = run()
+        finally:
+            select._select_topk_cuda = cur
+        if base != got:
+            bad = next(j for j in range(len(got)) if base[j] != got[j])
+            fail(f"{route}: record {bad} differs with the earlier tall kernel:"
+                 f"\n  {got[bad]}\n  {base[bad]}")
+        print(f"{route}: all {len(got)} records byte-equal with the earlier "
+              f"tall kernel in the wrapper's place (its search "
+              f"{b_search_s:.3f} s)")
+    return n_sel, step
 
 
 # -- 2b. the FM row-gather probes --------------------------------------------
@@ -856,18 +1181,21 @@ def launch_floor_ms():
 
 
 class Baseline:
-    """The earlier sources of gather_rows.cu, table_take.cu and
-    onehot_gather.cu in ``path`` (with their C interfaces
-    ``hsa_gather_rows(tab, nb, w, q, nq, pipe, chunk, out, stream)``,
-    ``hsa_table_take(tab, nb, q, nq, out, stream)`` and
+    """The earlier sources of the kernels, those of gather_rows.cu,
+    table_take.cu, onehot_gather.cu and select_topk.cu that ``path`` holds
+    (C interfaces ``hsa_gather_rows(tab, nb, w, q, nq, pipe, chunk, out,
+    stream)``, ``hsa_table_take(tab, nb, q, nq, out, stream)``,
     ``hsa_onehot_gather(tab, R, q, Q, out, stream)``: ``git show
-    93331e4:hsa_tpu_torch/csrc/<name>.cu``), built by kernels/build.py
+    93331e4:hsa_tpu_torch/csrc/<name>.cu``; and ``hsa_select_topk`` as
+    today's, whose ``tx`` = 1 is the earlier tall variant: ``git show
+    d6e8725:hsa_tpu_torch/csrc/select_topk.cu``), built by kernels/build.py
     beside the current kernels."""
 
     CHUNK = 256                  # the earlier wrapper's default chunk
 
     def __init__(self, path):
         import ctypes
+        from hsa_tpu_torch.kernels import select
         from hsa_tpu_torch.kernels.build import CudaKernel
         vp, i = ctypes.c_void_p, ctypes.c_int
 
@@ -886,7 +1214,27 @@ class Baseline:
             f"{name} (baseline)": CudaKernel(
                 os.path.abspath(os.path.join(path, f"{name}.cu")), declare)
             for name, declare in (("gather_rows", rows), ("table_take", take),
-                                  ("onehot_gather", onehot))}
+                                  ("onehot_gather", onehot),
+                                  ("select_topk", select._declare))
+            if os.path.exists(os.path.join(path, f"{name}.cu"))}
+        if not self.kernels:
+            fail(f"--baseline {path}: no kernel source there")
+
+    def kernel(self, name):
+        k = self.kernels.get(f"{name} (baseline)")
+        if k is None:
+            fail(f"--baseline: no {name}.cu to hold the kernel against")
+        return k
+
+    def select_topk(self, key, pays, K, window=None, accum=None):
+        """The earlier select_topk.cu, its tall variant (``tx`` = 1) where
+        today's plan is the tall kernel's, else today's tiled plan."""
+        from hsa_tpu_torch.kernels import select
+        C, B = key.shape
+        plan = select._plan(C, B, K, select._sms(key.get_device()))
+        return select_launch(self.kernel("select_topk"),
+                             1 if plan.tall else plan.code, key, tuple(pays),
+                             K, window, accum)
 
     @staticmethod
     def _run(name, launch, tab, q):
@@ -900,19 +1248,19 @@ class Baseline:
         return out
 
     def gather_rows(self, tab, q, pipe, chunk):
-        fn = self.kernels["gather_rows (baseline)"].lib().hsa_gather_rows
+        fn = self.kernel("gather_rows").lib().hsa_gather_rows
         return self._run("gather_rows (baseline)", lambda out, st: fn(
             tab.data_ptr(), tab.shape[0], tab.shape[1], q.data_ptr(),
             q.numel(), pipe, chunk, out, st), tab, q)
 
     def table_take(self, tab, q):
-        fn = self.kernels["table_take (baseline)"].lib().hsa_table_take
+        fn = self.kernel("table_take").lib().hsa_table_take
         return self._run("table_take (baseline)", lambda out, st: fn(
             tab.data_ptr(), tab.shape[0], q.data_ptr(), q.numel(), out, st),
             tab, q)
 
     def onehot_gather(self, tab, q):
-        fn = self.kernels["onehot_gather (baseline)"].lib().hsa_onehot_gather
+        fn = self.kernel("onehot_gather").lib().hsa_onehot_gather
         return self._run("onehot_gather (baseline)", lambda out, st: fn(
             tab.data_ptr(), tab.shape[0], q.data_ptr(), q.numel(), out, st),
             tab, q)
@@ -3014,6 +3362,14 @@ def device_api_phase(prefix, reads, beam_lines, seed, workdir, int32_ops_s,
             text, _oracle_meta(prefix), oreads, names, quals, opt,
             indexes=(fm_f, fm_r))]
         or_s = time.perf_counter() - t0
+        tall_reads = reads[:TALL_BATCH_READS]
+        tnames, tquals = handle_names(tall_reads[:TALL_BATCH_ORACLE])
+        t0 = time.perf_counter()
+        tall_want = [r.to_sam() for r in oracle_align(
+            text, _oracle_meta(prefix), tall_reads[:TALL_BATCH_ORACLE],
+            tnames, tquals, opt, indexes=(fm_f, fm_r))]
+        print(f"oracle_align on the tall batch's first {TALL_BATCH_ORACLE} "
+              f"reads (phase 3's): {time.perf_counter() - t0:.3f} s")
         del fm_f, fm_r
         print(f"oracle_align at {len(text)} bp: {len(oreads)} reads "
               f"({API_ORACLE_KINDS} in rotation), AlnOpt(max_diff="
@@ -3046,6 +3402,12 @@ def device_api_phase(prefix, reads, beam_lines, seed, workdir, int32_ops_s,
                            ties_ok=engine == "auto")
             path(route, n_sel, shapes, gated=engine == "beam")
             del al
+
+        # the tall select on a main path: a beam of W=512 over one batch
+        t0 = time.perf_counter()
+        sel["10c tall batch"], rows["10c tall batch"] = tall_batch_phase(
+            prefix, tall_reads, opt, tall_want, seed, int32_ops_s, compared)
+        print(f"the tall batch took {time.perf_counter() - t0:.3f} s")
 
         # entry(): the forward step, cuda against cpu
         step, args = tentry.entry("cuda")
@@ -3717,10 +4079,7 @@ def oracle_phase(seed, workdir, int32_ops_s, compared):
             rows[route] = select_path_phase(route, shapes, compared, seed,
                                             int32_ops_s)
 
-    rs = np.random.RandomState(seed + 15)
-    for case in [dict(ORACLE_TALL, name="tall frontier: W=512 at 16,384 "
-                                         "columns"), *ORACLE_TALL_EDGES]:
-        compared[select_key(case)] = select_compare(case, rs, int32_ops_s)
+    tall_phase(seed, int32_ops_s, compared)
 
     # the CLI's defaults: printed, not gated (a beam of 64 is lossy by design)
     cli_reads, _ = make_reads(genome, ORACLE_CLI_READS, seed + 16)
@@ -3786,9 +4145,17 @@ def main():
                          "no result line")
     ap.add_argument("--baseline", metavar="DIR",
                     help="also build the earlier gather_rows.cu, "
-                         "table_take.cu and onehot_gather.cu in DIR and hold "
-                         "and time them in turns with the current ones in "
-                         "phases 2b and 4b")
+                         "table_take.cu, onehot_gather.cu and select_topk.cu "
+                         "that DIR holds, and hold and time them in turns "
+                         "with the current ones (phases 2b and 4b; "
+                         "select_topk's tall shapes, and the tall batch of "
+                         "10c in full)")
+    ap.add_argument("--select-only", action="store_true",
+                    help="only phase 1 and select_topk: phase 2, the tall "
+                         "shapes and edges of phase 12, phases 12's and "
+                         "10c's tall launch shapes, a sweep of the tall "
+                         "kernel's plans and the host path; prints no "
+                         "result line")
     ap.add_argument("--oracle-only", action="store_true",
                     help="only phases 1 and 12 (the card's records against "
                          "the oracle); prints no result line")
@@ -3817,7 +4184,8 @@ def main():
     if a.handle_cpu:
         handle_cpu(*a.handle_cpu)
         return
-    baseline = Baseline(a.baseline) if a.baseline else None
+    global BASELINE
+    baseline = BASELINE = Baseline(a.baseline) if a.baseline else None
 
     phase("1. device and build")
     int32_ops_s = device_info()
@@ -3832,6 +4200,28 @@ def main():
             int32_ops_s)
         return
 
+    if a.select_only:
+        phase("2. select_topk kernel against its plain version on the card")
+        _, compared = kernel_phase(a.seed, int32_ops_s)
+        phase("select_topk's tall kernel: phase 12's shapes and edges, the "
+              "tall launch shapes of phases 12 and 10c")
+        tall_phase(a.seed, int32_ops_s, compared)
+        rs = np.random.RandomState(a.seed + 16)
+        for case in TALL_PATH_SHAPES:
+            select_compare(case, rs, int32_ops_s)
+        phase("select_topk: the tall kernel's phases")
+        rs = np.random.RandomState(a.seed + 19)
+        for case in [dict(ORACLE_TALL, name="tall frontier"),
+                     *ORACLE_TALL_EDGES[:2], ORACLE_TALL_EDGES[3],
+                     TALL_PATH_SHAPES[0], TALL_PATH_SHAPES[3],
+                     TALL_PATH_SHAPES[5]]:
+            select_phases(case, rs)
+        phase("select_topk: the tall kernel's plans")
+        select_sweep_phase(a.seed)
+        phase("select_topk: the host path")
+        select_host_phase(a.seed)
+        return
+
     if a.oracle_only:
         phase(ORACLE_PHASE)
         oracle_phase(a.seed, smoke_dir(), int32_ops_s, {})
@@ -3844,7 +4234,8 @@ def main():
         prefix, index_s = ensure_index(genome, a.seed, workdir)
         print(f"index build seconds: "
               f"{index_s if index_s is not None else 'cached'}")
-        reads, _ = make_reads(genome, API_HANDLE_READS, a.seed)
+        reads, _ = make_reads(genome, max(API_HANDLE_READS,
+                                          TALL_BATCH_READS), a.seed)
         del genome
         device_api_phase(prefix, reads, None, a.seed, workdir, int32_ops_s,
                          {})
@@ -3876,6 +4267,7 @@ def main():
 
     phase("2. select_topk kernel against its plain version on the card")
     shapes, compared = kernel_phase(a.seed, int32_ops_s)
+    host_rows = select_host_phase(a.seed)
 
     phase(PROBE_PHASE)
     probe_launches, probe_rows = probe_phase(baseline=baseline)
@@ -4379,6 +4771,8 @@ def main():
         "bound_by": step[0]["bound_by"],
         "library_ms": sum(s["library_ms"] for s in step),
         "ms_per": "one beam step: frontier select + hit merge",
+        "tall": [r for r in shapes if "plan" in r],
+        "host_path": host_rows,
         "step_by_path": {
             path: dict({k: sum(r[k] for r in rows) for k in sums},
                        shapes=[r["shape"] for r in rows])

@@ -89,3 +89,21 @@ class CudaKernel:
         lib = ctypes.CDLL(so)
         self._declare(lib)
         return lib
+
+
+def launch(name, fn, out, args):
+    """``fn(*args, stream)`` on the current stream of ``out``'s card, under
+    a device guard only when that card is not the current one; raises on a
+    CUDA error.  The stream is the raw handle, as torch's own compiled
+    kernels take it, with no ``torch.cuda.Stream`` built.  Imports torch
+    here, so that the native host code's build can import this module
+    without it."""
+    import torch
+    idx = out.get_device()
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -46,7 +46,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .build import CudaKernel
+from .build import CudaKernel, launch
 
 ROW_WORDS = (8, 32)                  # row widths of gather_rows
 # the probes' pipe depths gather_rows accepts; its kernel keeps a whole
@@ -118,21 +118,6 @@ def check_aligned(name, *tensors):
                              "16-byte aligned")
 
 
-def _launch(name, fn, out, args):
-    """``fn(*args, stream)`` on the current stream of ``out``'s card, under
-    a device guard only when that card is not the current one; raises on a
-    CUDA error.  The stream is the raw handle, as torch's own compiled
-    kernels take it, with no ``torch.cuda.Stream`` built."""
-    idx = out.get_device()
-    if idx == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
-    else:
-        with torch.cuda.device(idx):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def rows_plain(tab, q):
     """Plain version of :func:`gather_rows` and :func:`table_take`:
     ``tab[clamp(q)]``."""
@@ -181,7 +166,7 @@ def gather_rows(tab, q, pipe: int = 8, chunk: int | None = None):
         return out
     check_aligned("gather_rows", tab, out)
     plan = rows_plan(nq, chunk)
-    _launch("gather_rows", GATHER_ROWS.lib().hsa_gather_rows, out,
+    launch("gather_rows", GATHER_ROWS.lib().hsa_gather_rows, out,
             (tab.data_ptr(), nb, w, q.data_ptr(), nq, plan.tile,
              plan.threads, plan.grid, out.data_ptr()))
     GATHER_ROWS.count_launch((nb, w, nq, pipe, chunk))
@@ -240,7 +225,7 @@ def take_launch(tab, q, plan: TakePlan):
     """Launches ``table_take.cu`` on CUDA tensors by ``plan`` (no checks
     but the C function's) and counts the launch."""
     out = torch.empty((q.shape[0], 8), dtype=torch.int32, device=tab.device)
-    _launch("table_take", TABLE_TAKE.lib().hsa_table_take, out,
+    launch("table_take", TABLE_TAKE.lib().hsa_table_take, out,
             (tab.data_ptr(), tab.shape[0], q.data_ptr(), q.shape[0],
              plan.slices, plan.rows, plan.groups, out.data_ptr()))
     TABLE_TAKE.count_launch((tab.shape[0], q.shape[0]))
@@ -333,7 +318,7 @@ def onehot_gather(q, tab):
         return out
     check_aligned("onehot_gather", tab, out)
     plan = onehot_plan(nq)
-    _launch("onehot_gather", ONEHOT_GATHER.lib().hsa_onehot_gather, out,
+    launch("onehot_gather", ONEHOT_GATHER.lib().hsa_onehot_gather, out,
             (tab.data_ptr(), R, q.data_ptr(), nq, plan.tile, plan.threads,
              plan.grid, out.data_ptr()))
     ONEHOT_GATHER.count_launch((R, nq))

@@ -1,19 +1,27 @@
-"""Top-K selection for the beam engine: a CUDA kernel and its plain version.
+"""Top-K selection for the beam engine: two CUDA kernels and a plain version.
 
 Replaces the Pallas kernel ``hsa_tpu/kernels/select.py:_build_select``
-(body ``kern``, :59-89) behind ``select_topk`` (:124-203).  The kernel is
+(body ``kern``, :59-89) behind ``select_topk`` (:124-203).  The kernels are
 ``csrc/select_topk.cu``.  The function is bound by bytes: the keys read
 once, the outputs written once, and each picked payload word: 4 compulsory
 bytes, though the memory system moves a 32-byte sector for it, because
-neighbouring columns pick different rows.  So the kernel reads the keys once: a block compacts the valid keys
-of a tile of neighbouring columns into shared memory with coalesced loads,
-one warp per column ranks them by counting smaller keys (exact, because
-keys are unique within a column), and the winners' payloads are fetched by
-their rows and written out by rows (see the source's note).  Where a tile
-of 8 columns of ``C`` keys does not fit in a block's shared memory (the
-beam's frontier above W = 355), a block of the tall variant owns one column
-and all its warps rank it; :func:`_plan` picks the variant, and it covers
-every ``(C, K)`` that the beam launches (``9W < 2^14``).
+neighbouring columns pick different rows.
+
+- The tiled kernel (a tile of 16 or 8 columns a block) reads the keys once:
+  a block compacts the valid keys of its tile into shared memory with
+  coalesced loads, one warp per column ranks them by counting smaller keys
+  (exact, because keys are unique within a column), and the winners'
+  payloads are fetched by their rows and written out by rows.
+- Where a tile of 8 columns of ``C`` keys does not fit in a block's shared
+  memory (the beam's frontier above W = 355, its merge above W of about
+  700), the tall kernel keeps no list of C keys: a radix select over two
+  coalesced reads of the keys (a histogram of the score, then the keys at
+  or below the K-th key's bin), and a stable counting sort of the kept keys,
+  one warp a column.
+
+:func:`_plan` picks the kernel and its launch (:class:`Plan`; see the
+source's note), and covers every ``(C, K)`` that the beam launches (``9W <
+2^14``).
 
 Contract (the JAX function's, on int32 tensors):
 
@@ -43,17 +51,29 @@ stream, or raises; ``KERNEL.launches`` counts its launches.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
-from .build import CudaKernel
+from .build import CudaKernel, launch
 
 KEY_SH = 14                      # key = score << KEY_SH | row
 SENT = 0x7FFF0000                # invalid-key sentinel
 MAX_PAY = 3
-THREADS = 512                    # a block, as in csrc/select_topk.cu
 MAX_SMEM = 232_448               # shared memory a block may ask for (227 KB)
-TILES = (16, 8, 1)               # columns a block, widest first
+TILES = (16, 8)                  # the tiled kernel's columns a block
+# the tall kernel (csrc/select_topk.cu): columns a block, widest first; bins
+# of a digit, its per-column words and widest tile; and the shortest column
+# list the plan gives it, so that the boundary score of a merge (K = 32 or
+# 64 out of thousands of keys) fits without a further pass
+TALL_COLS = (8, 4, 2, 1)
+TALL_BINS = 1024
+TALL_HIST = TALL_BINS + TALL_BINS // 32   # a histogram row, padded
+TALL_FIELDS = 10
+TALL_MAX_COLS = 8
+TALL_MIN_LIST = 256
+SMS = 132                        # SMs of an H100 SXM, where none is given
 
 
 def _declare(lib):
@@ -61,27 +81,89 @@ def _declare(lib):
     lib.hsa_select_topk.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                     i, i, i, i, vp]
     lib.hsa_select_topk.restype = ctypes.c_int
+    if hasattr(lib, "hsa_select_topk_trace"):    # the tall kernel's marks
+        lib.hsa_select_topk_trace.argtypes = [vp]
+        lib.hsa_select_topk_trace.restype = ctypes.c_int
 
 
 KERNEL = CudaKernel("select_topk.cu", _declare)
 
 
+@dataclass(frozen=True)
+class Plan:
+    """One launch of ``csrc/select_topk.cu``.  The tiled kernel: ``cols`` =
+    16 or 8 columns a block, ``ls`` 0.  The tall kernel: ``cols`` = 8, 4, 2
+    or 1 columns a block, lists of ``ls`` keys a column."""
+    cols: int
+    ls: int = 0
+
+    @property
+    def tall(self) -> bool:
+        return self.ls > 0
+
+    @property
+    def code(self) -> int:
+        """The plan as the C function's ``tx`` takes it."""
+        return -(self.cols | self.ls << 4) if self.tall else self.cols
+
+    def __str__(self):
+        if not self.tall:
+            return f"tiled, {self.cols} columns a block"
+        return f"tall, {self.cols} columns a block, lists of {self.ls}"
+
+
 def smem_bytes(tx: int, C: int, K: int) -> int:
-    """Shared memory of one block of the kernel (``smem_bytes`` in the
+    """Shared memory of one block of the tiled kernel (``smem_bytes`` in the
     source): a tile of ``tx`` = 16 or 8 columns keeps each column's valid
     keys and rows (``cap`` entries, at least C and 1 modulo 32) and a staged
-    ``[K+1, tx+1]`` output tile; the tall variant (``tx`` = 1) keeps one
-    column's list, the K kept keys with their rows and a few counters."""
+    ``[K+1, tx+1]`` output tile."""
     cap = (C + 31) // 32 * 32 + 1
-    if tx == 1:
-        return 4 * (2 * cap + 2 * K + 2 * (THREADS // 32) + 2)
     return 4 * (2 * tx * cap + (2 * K + 1) * (tx + 1) + tx)
 
 
-def _plan(C: int, K: int):
-    """Columns a block for a select of K out of C rows: the widest of
-    ``TILES`` whose shared memory fits a block, or None."""
-    return next((tx for tx in TILES if smem_bytes(tx, C, K) <= MAX_SMEM), None)
+def tall_smem_bytes(cols: int, ls: int) -> int:
+    """Shared memory of one block of the tall kernel (``tall_smem_bytes``
+    in the source): a column's histogram of ``TALL_BINS`` (padded to
+    ``TALL_HIST``), two lists of keys and rows (``ls`` entries each, rounded
+    to 1 modulo 32), and the per-column words."""
+    stride = (ls + 31) // 32 * 32 + 1
+    return 4 * (cols * TALL_HIST + 4 * cols * stride
+                + TALL_FIELDS * TALL_MAX_COLS)
+
+
+def tall_list(C: int, K: int) -> int:
+    """Keys a column list of the tall kernel holds: K and an eighth more (at
+    least 64), at least ``TALL_MIN_LIST``, and no more than the column's C
+    rows need.  A boundary bin that overflows it costs another pass over
+    the keys."""
+    return max(TALL_MIN_LIST, K, min(C, K + max(64, K // 8)))
+
+
+def tall_plan(C: int, B: int, K: int, sms: int = SMS):
+    """The tall kernel's launch for a select of K out of C rows over B
+    columns: lists of :func:`tall_list` keys, and the widest tile whose
+    block fits and whose tiles give at least half of the ``sms`` SMs a
+    block, else the narrowest that fits.  None where no tile fits."""
+    ls = tall_list(C, K)
+    fits = [c for c in TALL_COLS if tall_smem_bytes(c, ls) <= MAX_SMEM]
+    if not fits:
+        return None
+    return Plan(next((c for c in fits if 2 * -(-B // c) >= sms), fits[-1]),
+                ls)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(C: int, B: int, K: int, sms: int = SMS):
+    """The launch of a select of K out of C rows over B columns: the tiled
+    kernel at the widest of ``TILES`` whose shared memory fits a block, else
+    the tall kernel (:func:`tall_plan`); None where neither fits."""
+    tx = next((t for t in TILES if smem_bytes(t, C, K) <= MAX_SMEM), None)
+    return Plan(tx) if tx else tall_plan(C, B, K, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(idx: int) -> int:
+    return torch.cuda.get_device_properties(idx).multi_processor_count
 
 
 def _check(key, payloads, K, window, drop_accum):
@@ -127,28 +209,21 @@ def select_topk_plain(key, payloads, K: int, window=None, drop_accum=None):
 
 def _select_topk_cuda(key, payloads, K, window, drop_accum):
     C, B = key.shape
-    tx = _plan(C, K)
-    if tx is None:
+    plan = _plan(C, B, K, _sms(key.get_device()))
+    if plan is None:
         raise ValueError(f"select_topk: no kernel variant holds C={C} K={K} "
                          f"in a block's shared memory")
-    lib = KERNEL.lib()
-    okeyd = torch.empty((K + 1, B), dtype=torch.int32, device=key.device)
-    pouts = tuple(torch.empty((K, B), dtype=torch.int32, device=key.device)
-                  for _ in payloads)
+    okeyd = key.new_empty((K + 1, B))
+    pouts = tuple(key.new_empty((K, B)) for _ in payloads)
     if B == 0:                       # nothing to launch over
         return okeyd, pouts, okeyd[K:K + 1]
     pin = [p.data_ptr() for p in payloads] + [None] * (MAX_PAY - len(payloads))
     pout = [p.data_ptr() for p in pouts] + [None] * (MAX_PAY - len(pouts))
-    with torch.cuda.device(key.device):
-        stream = torch.cuda.current_stream(key.device).cuda_stream
-        err = lib.hsa_select_topk(
-            key.data_ptr(), len(payloads), *pin, *pout,
-            window.data_ptr() if window is not None else None,
-            drop_accum.data_ptr() if drop_accum is not None else None,
-            okeyd.data_ptr(), C, B, K, tx, stream)
-    if err:
-        raise RuntimeError(f"select_topk kernel launch failed: CUDA error {err} "
-                           f"at C={C} B={B} K={K}")
+    launch("select_topk", KERNEL.lib().hsa_select_topk, key, (
+        key.data_ptr(), len(payloads), *pin, *pout,
+        window.data_ptr() if window is not None else None,
+        drop_accum.data_ptr() if drop_accum is not None else None,
+        okeyd.data_ptr(), C, B, K, plan.code))
     KERNEL.count_launch((C, B, K, window is not None))
     return okeyd, pouts, okeyd[K:K + 1]
 

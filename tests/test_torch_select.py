@@ -306,78 +306,105 @@ def emulate_kernel(key, pays, K, win, acc, TX, seed):
     return okey, pouts
 
 
-def emulate_tall(key, pays, K, win, acc, seed):
-    """The kernel's tall variant (one column a block, all warps on it) step
-    by step: each warp of 32 threads appends its valid keys at a base taken
-    from one shared atomic, in an arbitrary order of warps (shuffled from
-    ``seed``); above K keys the block bisects to the K-th smallest, each
-    round's count summed over the warps, and the keys at or below it are
-    appended to a second list of K entries the same way; each kept key is
-    ranked by counting smaller ones and written to row ``rank`` with its
-    payloads.  Invalid slots: SENT and payload 0."""
+def sweep_rows(C, B, plan):
+    """The rows of a column in the order of the tall kernel's sweep: thread
+    y of the R = 512 / (cols / vec) threads a column has reads rows c0 + u
+    * R + y, u < 8 loads, for c0 = 0, 8R, ...; vec = 4 columns a thread
+    where the tile and the width allow it.  Each row comes exactly once."""
+    vec = 4 if plan.cols % 4 == 0 and B % 4 == 0 else 1
+    R = 512 // (plan.cols // vec)
+    rows = [c for c0 in range(0, C, 8 * R) for u in range(8)
+            for c in range(c0 + u * R, c0 + (u + 1) * R) if c < C]
+    assert sorted(rows) == list(range(C))
+    return np.asarray(rows)
+
+
+def emulate_tall(key, pays, K, win, acc, seed, plan=None, passes=None):
+    """The tall kernel of ``csrc/select_topk.cu`` step by step on numpy
+    arrays, at ``plan`` (by default :func:`select.tall_plan`'s): each
+    column's rows in the order of the kernel's sweep; the histogram of the
+    score's low 10 bits and the score range; where the scores span fewer
+    than 1,024 values, the K-th key's score by a prefix sum from the least
+    score, else the whole 31-bit range; then, while the keys below and in
+    the boundary bin overflow a list of ``plan.ls``, a pass over the next 10
+    bits of the keys in the bin; the emit pass, the kept keys in a shuffled
+    order (the shared-memory atomics', from ``seed``); a stable LSD counting
+    sort, at most 5 bits a digit, of the key minus the least key, each of
+    32 lanes placing its share of the list with counters of its own; the
+    write-out.  Invalid slots: SENT and payload 0.  ``passes``, a list,
+    gets each column's count of histogram passes after the first."""
     C, B = key.shape
-    threads, loads = 512, 4
+    plan = plan or select.tall_plan(C, B, K)
+    assert plan.tall and plan.ls >= K
+    bins, digit = select.TALL_BINS, 10
     rs = np.random.RandomState(seed)
+    rows = sweep_rows(C, B, plan)
     okey = np.full((K + 1, B), 0xDEAD, np.int64)
     pouts = [np.full((K, B), 0xDEAD, np.int64) for _ in pays]
-
-    def warp_append(items, out_k, out_r, cnt):
-        """items: per warp, the (key, row) its lanes keep, in lane order."""
-        for w in rs.permutation(len(items)):
-            for lane, (k, r) in enumerate(items[w]):
-                out_k[cnt + lane], out_r[cnt + lane] = k, r
-            cnt += len(items[w])
-        return cnt
-
     for col in range(B):
-        skey = np.full(C + 32, -7, np.int64)
-        srow = np.full(C + 32, -7, np.int64)
-        n = 0
-        for c0 in range(0, C, loads * threads):
-            for u in range(loads):
-                items = []
-                for w in range(threads // 32):
-                    got = []
-                    for lane in range(32):
-                        cc = c0 + u * threads + w * 32 + lane
-                        k = int(key[cc, col]) if cc < C else SENT
-                        if k < SENT and not (win is not None and (
-                                k >> KEY_SH) > int(win[col])):
-                            got.append((k, cc))
-                    items.append(got)
-                n = warp_append(items, skey, srow, n)
-        m = min(n, K)
-        rk, rr = skey, srow
-        if n > K:
-            lo, hi = int(skey[:n].min()), int(skey[:n].max())
-            while lo < hi:
-                mid = lo + (hi - lo) // 2
-                # thread t counts entries t, t + 512, ...; summed over all
-                total = sum(int((skey[t:n:threads] <= mid).sum())
-                            for t in range(threads))
-                if total >= K:
-                    hi = mid
-                else:
-                    lo = mid + 1
-            kkey = np.full(K, -7, np.int64)
-            krow = np.full(K, -7, np.int64)
-            kept = 0
-            for i0 in range(0, n, threads):
-                items = [[(int(skey[i]), int(srow[i]))
-                          for i in range(i0 + w * 32, min(i0 + w * 32 + 32, n))
-                          if skey[i] <= lo] for w in range(threads // 32)]
-                kept = warp_append(items, kkey, krow, kept)
-            assert kept == K
-            rk, rr = kkey, krow
-        for i in range(m):
-            rank = int((rk[:m] < rk[i]).sum())
-            okey[rank, col] = rk[i]
-            for p, po in zip(pays, pouts):
-                po[rank, col] = p[rr[i], col]
-        for s in range(n, K):
-            okey[s, col] = SENT
-            for po in pouts:
-                po[s, col] = 0
+        k = key[rows, col].astype(np.int64)
+        valid = k < SENT
+        if win is not None:
+            valid &= (k >> KEY_SH) <= int(win[col])
+        # 1-2. the histogram pass
+        s = k[valid] >> KEY_SH
+        hist = np.bincount(s & (bins - 1), minlength=bins)
+        n = len(s)
+        smin, smax = (int(s.min()), int(s.max())) if n else (2 ** 31 - 1, -1)
+        lo, lg, below, cnt = 0, 31, 0, n
+        if n > K and smax - smin < bins:
+            h = hist[(smin + np.arange(bins)) & (bins - 1)]
+            at = int(np.argmax(np.cumsum(h) >= K))
+            below, cnt = int(h[:at].sum()), int(h[at])
+            lo, lg = (smin + at) << KEY_SH, KEY_SH
+        # 3. into the boundary bin while it overflows the list
+        extra = 0
+        while n > K and below + cnt > plan.ls:
+            db = min(digit, lg)
+            sh = lg - db
+            d = k[valid] - lo
+            h = np.bincount(d[(d >= 0) & (d < 1 << lg)] >> sh,
+                            minlength=1 << db)
+            at = int(np.argmax(np.cumsum(h) >= K - below))
+            below, cnt = below + int(h[:at].sum()), int(h[at])
+            lo, lg = lo + (at << sh), sh
+            extra += 1
+        assert extra <= 4
+        if passes is not None:
+            passes.append(extra)
+        top = lo + (1 << lg) - 1
+        # 4. the emit pass: the kept keys, shuffled
+        keep = valid & (k <= top)
+        order = rs.permutation(int(keep.sum()))
+        lk, lr = k[keep][order], rows[keep][order]
+        assert len(lk) == (n if n <= K else below + cnt) <= plan.ls
+        # 5. the stable LSD counting sort, 5 bits a digit at most: "lane" l
+        #    counts and places entries [l * per, (l + 1) * per) with
+        #    counters of its own, the starts in (digit, lane) order
+        if len(lk) > 1 and lk.max() > lk.min():
+            mn = int(lk.min())
+            bits = int(lk.max() - mn).bit_length()
+            n_pass = -(-bits // 5)
+            dw = -(-bits // n_pass)
+            lane = np.arange(len(lk)) // -(-len(lk) // 32)
+            for p in range(n_pass):
+                d = ((lk - mn) >> (p * dw)) & ((1 << dw) - 1)
+                own = np.zeros((32, 1 << dw), np.int64)
+                np.add.at(own, (lane, d), 1)
+                flat = own.T.ravel()                 # digit-major, then lane
+                start = (np.cumsum(flat) - flat).reshape(1 << dw, 32).T.copy()
+                pos = np.empty(len(d), np.int64)
+                for i, (ln, x) in enumerate(zip(lane, d)):
+                    pos[i] = start[ln, x]
+                    start[ln, x] += 1
+                sk, sr = np.empty_like(lk), np.empty_like(lr)
+                sk[pos], sr[pos] = lk, lr
+                lk, lr = sk, sr
+        # 6. the write-out
+        m = min(len(lk), K)
+        okey[:m, col], okey[m:K, col] = lk[:m], SENT
+        for p, po in zip(pays, pouts):
+            po[:m, col], po[m:, col] = p[lr[:m], col], 0
         a = int(acc.reshape(-1)[col]) if acc is not None else 0
         okey[K, col] = (a + max(n - K, 0)) & 0xFFFFFFFF
     return okey, pouts
@@ -415,9 +442,9 @@ def test_kernel_algorithm_emulated(name, TX):
 
 
 def test_tall_variant_emulated_at_many_rows():
-    """The tall variant over more rows than one round of loads (2,048 rows
-    a round: 512 threads x 4), with more valid keys than K, at the frontier's
-    ratio C = 9K."""
+    """The tall kernel over more rows than one load of its threads (512
+    rows a load of one column: five loads, the last ragged), with more
+    valid keys than K, at the frontier's ratio C = 9K."""
     key, pays, win, acc = make_case(2_340, 3, seed=21, frac_valid=0.8,
                                     with_window=True, with_accum=True)
     K = 260
@@ -433,29 +460,125 @@ def test_tall_variant_emulated_at_many_rows():
         np.testing.assert_array_equal(np.where(valid, a, 0), b)
 
 
+def tall_case(name):
+    """(key, pays, win, acc, K, plan) for an edge of the tall kernel's radix
+    select and counting sort."""
+    C, B, K = (601 if name == "rows_no_multiple_of_the_split" else 600), 6, 100
+    rs = np.random.RandomState(len(name) + 40)
+    row = np.arange(C, dtype=np.int64)[:, None]
+    score = rs.randint(0, 30, (C, B)).astype(np.int64)
+    tag = np.broadcast_to(row, (C, B))
+    invalid = rs.rand(C, B) > 0.9
+    plan = select.tall_plan(C, B, K)
+    if name == "full_range_scores":
+        score = rs.randint(0, 0x1FFFC, (C, B)).astype(np.int64)
+    elif name == "one_score":
+        score = np.full((C, B), 1234, np.int64)
+    elif name == "shuffled_low":
+        tag = np.argsort(rs.rand(C, B), axis=0)
+    elif name in ("n_equals_K_at_bin_edge", "n_equals_K_plus_1_at_bin_edge"):
+        # K valid keys of scores 3..7 then (for K + 1) one alone at score 9
+        n = K + (name == "n_equals_K_plus_1_at_bin_edge")
+        invalid = np.ones((C, B), bool)
+        for b in range(B):
+            pick = rs.permutation(C)[:n]
+            invalid[pick, b] = False
+            score[pick[:K], b] = rs.randint(3, 8, K)
+            score[pick[K:], b] = 9
+    elif name == "no_valid_key_in_a_column":
+        invalid[:, 2] = True
+    key = np.where(invalid, SENT | np.arange(C)[:, None],
+                   (score << KEY_SH) | tag).astype(np.uint32)
+    pays = [rs.randint(0, 2 ** 32, (C, B), dtype=np.int64).astype(np.uint32)
+            for _ in range(3)]
+    acc = rs.randint(0, 2 ** 32, (1, B), dtype=np.int64).astype(np.uint32)
+    return key, pays, None, acc, K, plan
+
+
+TALL_EDGES = ["full_range_scores", "one_score", "shuffled_low",
+              "n_equals_K_at_bin_edge", "n_equals_K_plus_1_at_bin_edge",
+              "no_valid_key_in_a_column", "rows_no_multiple_of_the_split"]
+
+
+@pytest.mark.parametrize("name", TALL_EDGES)
+def test_tall_kernel_edges_emulated(name):
+    """The tall kernel's walk, emulated, against the plain version (valid
+    slots, drop row, payloads) and the JAX package's sort reference (every
+    valid slot): scores over the whole 17-bit range (the select from the
+    top bits, passes over a list of 256), every key of one score (the order
+    from the low field alone), low fields that are not the row, exactly K and
+    K + 1 valid keys with the K-th at a bin's edge, a column with no valid
+    key, and rows that the threads' split leaves ragged (601 rows over 512
+    threads a column)."""
+    key, pays, win, acc, K, plan = tall_case(name)
+    okeyd, pouts, _ = run_port(key, pays, K, win, acc)
+    passes = []
+    ek, ep = emulate_tall(key.astype(np.int64),
+                          [p.astype(np.int64) for p in pays], K, win, acc,
+                          seed=9, plan=plan, passes=passes)
+    valid = okeyd[:K] < SENT
+    np.testing.assert_array_equal(np.where(valid, okeyd[:K], SENT), ek[:K])
+    np.testing.assert_array_equal(okeyd[K], ek[K])
+    for a, b in zip(pouts, ep):
+        np.testing.assert_array_equal(np.where(valid, a, 0), b)
+    rk, rp, rd = select_topk_reference(
+        jnp.asarray(key), tuple(jnp.asarray(p) for p in pays), K, None)
+    rk = _u32(rk)
+    np.testing.assert_array_equal(np.where(valid, rk, SENT), ek[:K])
+    for a, b in zip(rp, ep):
+        np.testing.assert_array_equal(np.where(valid, _u32(a), 0), b)
+    if name in ("full_range_scores", "one_score"):
+        assert min(passes) >= 1        # the boundary bin overflowed the list
+    if name == "no_valid_key_in_a_column":
+        assert (ek[:K, 2] == SENT).all() and ek[K, 2] == acc[0, 2]
+
+
 # -- the kernel's plan: which variant each beam select takes -----------------
 
 @pytest.mark.parametrize("W", [8, 64, 255, 355, 356, 512, 1024, 1820])
 @pytest.mark.parametrize("which", ["frontier", "merge"])
 def test_plan_fits_every_beam_width(W, which):
     """The beam's frontier select ([9W, B], K = W) and hit merge ([5W + H,
-    B], K = H, H up to 64) get a variant whose shared memory fits a block at
-    every width the beam's keys allow (9W < 2^14), and the widest tile that
-    fits: 16 columns where the first kernel ran, 8 up to W = 355 at the
-    frontier, one column (the tall variant) above."""
+    B], K = H, H up to 64) get a plan whose shared memory fits a block at
+    every width the beam's keys allow (9W < 2^14) and every batch width:
+    the tiled kernel at the widest tile that fits (16 columns where the
+    first kernel ran, 8 up to W = 355 at the frontier), the tall kernel
+    above, at the widest tile that fits and gives half of the SMs a
+    block."""
     assert 9 * W < 1 << KEY_SH
     shapes = [(9 * W, W)] if which == "frontier" else \
         [(5 * W + H, H) for H in (8, 32, 64)]
     for C, K in shapes:
-        tx = select._plan(C, K)
-        assert tx in select.TILES
-        assert select.smem_bytes(tx, C, K) <= select.MAX_SMEM
-        wider = [t for t in select.TILES if t > tx]
-        assert all(select.smem_bytes(t, C, K) > select.MAX_SMEM for t in wider)
+        for B in (4, 256, 516, 2_048, 16_384, 32_768):
+            plan = select._plan(C, B, K)
+            if not plan.tall:
+                assert plan.cols in select.TILES
+                assert select.smem_bytes(plan.cols, C, K) <= select.MAX_SMEM
+                wider = [t for t in select.TILES if t > plan.cols]
+                assert all(select.smem_bytes(t, C, K) > select.MAX_SMEM
+                           for t in wider)
+                continue
+            assert all(select.smem_bytes(t, C, K) > select.MAX_SMEM
+                       for t in select.TILES)
+            assert plan.ls >= max(K, select.TALL_MIN_LIST)
+            assert select.tall_smem_bytes(plan.cols, plan.ls) <= \
+                select.MAX_SMEM
+            wider = [c for c in select.TALL_COLS if c > plan.cols]
+            assert all(select.tall_smem_bytes(c, plan.ls) > select.MAX_SMEM
+                       or 2 * -(-B // c) < select.SMS for c in wider)
+            tiles = -(-B // plan.cols)
+            assert 2 * tiles >= select.SMS or plan.cols == min(
+                c for c in select.TALL_COLS
+                if select.tall_smem_bytes(c, plan.ls) <= select.MAX_SMEM)
+            # the code the C function decodes
+            c = -plan.code
+            assert (c & 15, c >> 4) == (plan.cols, plan.ls)
     if which == "frontier":
-        assert select._plan(9 * W, W) == (16 if W <= 64 else 8 if W <= 355
-                                          else 1)
-    # the byte counts of the source's first kernel, at the widths named in
+        assert select._plan(9 * W, 32_768, W).tall == (W > 355)
+    # the byte counts of the source's tiled kernel, at the widths named in
     # its note: the frontier's tile of 8 fits up to W = 355 and not above
     assert select.smem_bytes(8, 9 * 355, 355) == 230_492
     assert select.smem_bytes(8, 9 * 356, 356) == 232_612
+    # the tall kernel's at W = 512 and W = 1820
+    assert select.tall_smem_bytes(8, 576) == 107_968
+    assert select.tall_smem_bytes(4, 2_047) == 148_352
