@@ -9,6 +9,8 @@ Run from the root of a checkout, on a machine with a CUDA card::
     python3 chip_smoke.py --oracle-only           # phases 1 and 12 alone
     python3 chip_smoke.py --api-only              # phase 1, 3's index, 10c
     python3 chip_smoke.py --select-only           # phase 1, select_topk alone
+    python3 chip_smoke.py --search-only           # phase 1, 3's index, 13a
+    python3 chip_smoke.py --profile-only          # phase 1, 3's index, 11 (SE)
     python3 chip_smoke.py --baseline DIR ...      # earlier kernels in turns
 
 It imports nothing of JAX and nothing of the JAX package: it drives the
@@ -21,7 +23,8 @@ any result.
 1. Device and build: the card's name and power limit (``nvidia-smi``),
    the torch/CUDA versions; builds every CUDA kernel from
    ``hsa_tpu_torch/csrc`` (select_topk, glocal_screen, gather_rows,
-   table_take, onehot_gather), one nvcc each, in parallel, with their times.
+   table_take, onehot_gather, fm_extend, pigeon_verify: window_verify and
+   gapped_screen), one nvcc each, in parallel, with their times.
 2. select_topk against plain, on the card, at the beam step's two shapes
    (frontier ``[576, 32768]`` K=64 with window, hit merge ``[352, 32768]``
    K=32; three payloads each; seeded, ~30% of the keys valid): valid keys
@@ -70,7 +73,11 @@ any result.
    the index is cached under ``hsa_tpu_torch/_build/smoke/``, keyed by
    size and seed), then ``align --engine beam --device cuda`` at the CLI
    defaults on 32,768 reads of 100 bp: half reverse-strand, each with 2
-   mismatches, every fourth also with a 1-bp deletion.
+   mismatches, every fourth also with a 1-bp deletion.  The search
+   kernels' counts (fm_extend, window_verify, gapped_screen) are set to 0
+   just before this and every later main path and read just after; here
+   fm_extend must have launched (the beam's step and the width pass), and
+   every launch shape is kept for phase 13a.
 4. Checks: mapped fraction >= 0.95; mapped reads within 2 bp of their
    origin >= 0.99; the select kernel's launch count during phase 3 alone
    equals 2 x n_steps x batches; every ``(C, B, K, window)`` that the
@@ -132,7 +139,9 @@ any result.
    with no ``--engine`` (the CLI's default, ``auto``) on phase 6's pairs
    with a pair of 200 bp ends after every 128th (256 pairs too long for the
    pigeon engine: the router hands their ends to the beam, pooled by the
-   paired stream's flush), with both kernels' counts set to 0 just before.
+   paired stream's flush), with both kernels' counts set to 0 just before;
+   fm_extend must have launched in the table's build, window_verify and
+   gapped_screen on align-pe.
 7b. Checks: per batch its fallback, trunc and retry fractions and its
    rescue jobs; phase 7's gates over all pairs (the long ones count as
    plain pairs); glocal_screen launched once per batch with rescue jobs and
@@ -169,7 +178,8 @@ any result.
    the CLI defaults over phase 3's reads with a 200 bp read after every
    64th (512 reads too long for the pigeon engine: the router hands them
    to the beam, pooled over the stream's batches), with the select
-   kernel's count set to 0 just before.
+   kernel's count set to 0 just before; fm_extend, window_verify and
+   gapped_screen must each have launched.
 9. Pigeon checks: reads/s over the align window and peak device memory;
    mapped >= 0.95 and placed within 2 bp >= 0.99 over all reads; the select
    kernel's launches during phase 8 alone, which must be above 0, and
@@ -211,7 +221,10 @@ any result.
    at two data slices: the per-lane fields exactly, the pool and gapped
    entries as sets, the occurrences exactly); every merge must have run on
    CUDA tensors, the ranks of a shard group must have merged alike, and
-   select_topk must have launched 2 x 107 times in each beam call.
+   select_topk must have launched 2 x 107 times in each beam call, and
+   fm_extend more than 0 times in every rank, where it is held exactly
+   against its plain version (both merging once) at every shape the entry
+   points launched it at.
    Each entry point runs twice a rank (the first call in a fresh process);
    prints per world and entry point the slowest rank's wall seconds of
    both calls, the all-reduces and the bytes a shard of a call, and the
@@ -301,6 +314,18 @@ any result.
    W=64) through both engines and the oracle: how many records are
    byte-equal, and the first differing field of the others.  Prints the
    seconds of every route and of the phase.
+13a. The search kernels: fm_extend (one FM backward step, ``fm.extend``
+   and ``fm.extend4_flat``), window_verify and gapped_screen (the pigeon
+   engine's verify stages) at every unsharded shape that phases 3-12
+   launched them at, each exactly equal to its plain version on the card
+   (fm_extend on lanes of phase 3's index: narrow intervals at uniform
+   ranks, empty ones, the primary's block, n and n + 1 and dead lanes;
+   the verify kernels on pools of reads cut from phase 3's genome with
+   gaps of up to G bases, substitutions and Ns, candidates shifted by up
+   to G, at the text's ends and unfetched, a third gated), then their
+   device ms in turns with the plain version's and, for fm_extend,
+   ``index_select`` of the same rows, beside the bound (bytes or the int32
+   operations counted from the kernel's source).
 13. Prints the kernel table as one JSON line (per kernel: launches on the
    main paths, max |err|, ms, plain_ms, library_ms (for select_topk those of
    one beam step of ``align --engine beam``, with every path's own step at
@@ -320,7 +345,9 @@ any result.
    on the main paths (null with ``--probes-only``), device_ms (queued
    calls), every probe launch under ``shapes`` and for gather_rows phase
    4b's four cases under ``main_table``, its top-level times those of the
-   real extend with the L2 flushed), then, as the last line,
+   real extend with the L2 flushed; the three search kernels' launches by
+   path and their numbers at the shape launched most often, every shape
+   under ``shapes``), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -554,17 +581,28 @@ def device_info():
     return INT32_LANES * mhz * 1e6
 
 
-def build_kernels(baseline=None):
+def build_kernels(baseline=None, optional_search=False):
     """Every CUDA source of the package (and the ``baseline`` kernels), one
-    nvcc each, started together."""
+    nvcc each, started together; ``optional_search``: an earlier tree
+    without the search kernels is built without them."""
     from concurrent.futures import ThreadPoolExecutor
     from hsa_tpu_torch.kernels import gather, select, sw
+    search = search_modules()
+    if search is None and not optional_search:
+        fail("hsa_tpu_torch has no search kernels (kernels/extend.py, "
+             "kernels/verify.py)")
+    # window_verify and gapped_screen share one source: built once
+    search = {"fm_extend": search["fm_extend"],
+              "pigeon_verify": search["window_verify"]} if search else {}
     kernels = {"select_topk": select.KERNEL, "glocal_screen": sw.KERNEL,
-               **gather.KERNELS, **(baseline.kernels if baseline else {})}
+               **gather.KERNELS, **search,
+               **(baseline.kernels if baseline else {})}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
         for fut in [ex.submit(k.lib) for k in kernels.values()]:
             fut.result()
+    if search:
+        search_modules()["gapped_screen"].lib()
     print(f"kernels built in {time.perf_counter() - t0:.3f} s")
     for name, k in kernels.items():
         print(f"{name}: nvcc {k.build_s} s")
@@ -2947,11 +2985,13 @@ def shard_rank(workdir, index_npz, backend, n_data, n_shard, rank, world,
     from hsa_tpu_torch.dist import (COLLECTIVES, ShardedIndex, init_multihost,
                                     make_mesh)
     from hsa_tpu_torch.index.layout import DeviceIndex
-    from hsa_tpu_torch.kernels import select
+    from hsa_tpu_torch.kernels import extend, select
     from hsa_tpu_torch.search import pigeon as pg
     from hsa_tpu_torch.search.exact import as_wide
 
     n_data, n_shard, rank, world = map(int, (n_data, n_shard, rank, world))
+    extend.KERNEL.launches = 0
+    extend.KERNEL.launch_shapes.clear()
     torch.cuda.set_device(0)
     init_multihost(addr, world, rank, backend, timeout=SHARD_PG_TIMEOUT_S)
     mesh = make_mesh(n_data, n_shard)
@@ -3016,14 +3056,43 @@ def shard_rank(workdir, index_npz, backend, n_data, n_shard, rank, world,
     if set(COLLECTIVES.devices) != {"cuda"}:
         raise AssertionError(f"merges ran on {dict(COLLECTIVES.devices)}, not "
                              "on CUDA tensors only")
+    ext_launches = extend.KERNEL.launches
+    ext_shapes = [[*k, n] for k, n in extend.KERNEL.launch_shapes.items()]
+    shard_extend_check(si.idx, extend.KERNEL.launch_shapes)
     tag = f"{backend}_{n_data}x{n_shard}"
     np.savez(os.path.join(workdir, f"shard_{tag}_{rank}.npz"), **out)
     with open(os.path.join(workdir, f"shard_{tag}_{rank}.json"), "w") as fh:
         json.dump(dict(backend=dist.get_backend(), setup_s=setup_s,
                        entries=entries,
                        merges_on=dict(COLLECTIVES.devices),
-                       select_launches=launches, select_shapes=shapes), fh)
+                       select_launches=launches, select_shapes=shapes,
+                       fm_extend_launches=ext_launches,
+                       fm_extend_shapes=ext_shapes), fh)
     dist.destroy_process_group()
+
+
+def shard_extend_check(idx, launched):
+    """In a rank: fm_extend on the rank's shard at every shape the entry
+    points launched it at, exactly equal to the plain version (both merge
+    once over the shard group; the lanes come from the shape, so every rank
+    of a group makes the same calls)."""
+    import torch
+    from hsa_tpu_torch.search import fm
+    for (B, kind, rev, sharded) in sorted(launched):
+        if not sharded:
+            raise AssertionError(f"an unsharded fm_extend launch {B} in a "
+                                 "rank")
+        rs = np.random.RandomState(B % 100_003 + 7 * rev)
+        a, k, l = extend_lanes(idx, B, rev, rs)
+        if kind == "extend4":
+            got, want = (torch.stack(x + y) for x, y in (
+                fm.extend4_flat(idx, k, l), fm.extend4_flat_plain(idx, k, l)))
+        else:
+            got = torch.stack(fm.extend(idx, a, k, l, rev=rev))
+            want = torch.stack(fm.extend_plain(idx, a, k, l, rev=rev))
+        if not torch.equal(got, want):
+            raise AssertionError(f"fm_extend at {(B, kind, rev)} on a shard "
+                                 "differs from the plain version")
 
 
 def _pool_sets(p):
@@ -3085,11 +3154,13 @@ def shard_compare(name, ref, got, n_data, opt, n_reads):
     same("pigeon missed", a[2], b[2])
 
 
-def shard_phase(prefix, reads, seed, workdir):
+def shard_phase(prefix, reads, seed, workdir, counts):
     """Phase 10b: each world of SHARD_WORLDS (ranks started as fresh
     processes, all on this card) runs every entry point; every rank's
-    results must equal the unsharded ones.  Returns (select_topk launches
-    in the ranks, their launch shapes)."""
+    results must equal the unsharded ones, and each rank's fm_extend
+    launches (more than 0, held against plain at their shapes in the rank)
+    go into ``counts``.  Returns (select_topk launches in the ranks, their
+    launch shapes)."""
     from collections import Counter
     from hsa_tpu_torch.config import AlnOpt
     from hsa_tpu_torch.dist.launch import run_world
@@ -3126,6 +3197,11 @@ def shard_phase(prefix, reads, seed, workdir):
             launches += info["select_launches"]
             for C, B, K, win, n in info["select_shapes"]:
                 shapes[(C, B, K, bool(win))] += n
+            if info["fm_extend_launches"] == 0:
+                fail(f"world {tag} rank {r}: fm_extend launched no time")
+            counts.add("the sharded index (phase 10b's ranks)", "fm_extend",
+                       info["fm_extend_launches"],
+                       [(s[:-1], s[-1]) for s in info["fm_extend_shapes"]])
         for label, _, _, n, _ in infos[0]["entries"]:
             if label == FM_API_LABEL and n != len(FM_API_FNS):
                 fail(f"world {tag}: the four device functions made {n} "
@@ -3144,7 +3220,9 @@ def shard_phase(prefix, reads, seed, workdir):
         print(f"world {tag} ({where}): backend {infos[0]['backend']}, merges "
               f"on {infos[0]['merges_on']}; world {world_s:.3f} s, set-up "
               f"{max(i['setup_s'] for i in infos):.3f} s; every rank's whole "
-              f"result equals the unsharded one")
+              f"result equals the unsharded one; fm_extend launches by rank "
+              f"{[i['fm_extend_launches'] for i in infos]}, each held against "
+              f"plain at its {len(infos[0]['fm_extend_shapes'])} shapes")
         for j, (label, _, _, n, nbytes) in enumerate(infos[0]["entries"]):
             first, again = (max(i["entries"][j][k] for i in infos)
                             for k in (1, 2))
@@ -3512,7 +3590,7 @@ def profile_phase(prefix, reads, opt_dict, fq, workdir):
     from torch.profiler import ProfilerActivity, profile
     from hsa_tpu_torch.pipeline import Aligner
     al = Aligner(prefix, engine="beam", device="cuda")
-    if al.opt.to_dict() != opt_dict:
+    if opt_dict is not None and al.opt.to_dict() != opt_dict:
         fail("Aligner() defaults differ from the CLI defaults")
     seq = 0.0
     for s in range(0, len(reads), BATCH):
@@ -3839,6 +3917,365 @@ def profile_pigeon_phase(prefix, reads, fq, workdir):
               f"{seq:.6f} s; index load {met['t_index_load_s']} s")
 
 
+# -- 13a. the search kernels: fm_extend, window_verify, gapped_screen ----------
+SEARCH_PHASE = ("13a. the search kernels (fm_extend, window_verify, "
+                "gapped_screen) against their plain versions at every shape "
+                "the paths launched them at")
+SEARCH_KERNELS = ("fm_extend", "window_verify", "gapped_screen")
+SEARCH_REPLACES = {
+    "fm_extend": ("hsa_tpu_torch/csrc/fm_extend.cu",
+                  "hsa_tpu/search/fm.py:194"),
+    "window_verify": ("hsa_tpu_torch/csrc/pigeon_verify.cu",
+                      "hsa_tpu/search/pigeon.py:669"),
+    "gapped_screen": ("hsa_tpu_torch/csrc/pigeon_verify.cu",
+                      "hsa_tpu/search/pigeon.py:720"),
+}
+# the least int32 operations each function needs, a lane or an item: an
+# interval end's block, offset, clamp and masks, and per base and end the
+# two symbol words' match test and popcounts (fm_extend); a read word's
+# diagonal shift, XOR, pair fold, masks and two popcounts (window_verify);
+# and per read position and gap length, for each of the four placements,
+# its count, seed test, budget test and minimum (gapped_screen).  The
+# kernels issue more (PERF.md section 6)
+EXTEND_OPS_PER_END, EXTEND_OPS_PER_BASE = 4, 8
+VERIFY_OPS_PER_WORD = 8
+GAPPED_OPS_PER_POS = 16
+SEARCH_LARGE_LANES = 1 << 22        # above this, a shape is timed once
+
+
+def search_modules():
+    """The search kernels' wrappers, or None where this checkout has none
+    (an earlier tree under ``--profile-only``)."""
+    import importlib.util
+    if importlib.util.find_spec("hsa_tpu_torch.kernels.verify") is None:
+        return None
+    from hsa_tpu_torch.kernels import extend, verify
+    return {"fm_extend": extend.KERNEL, "window_verify": verify.WINDOW_VERIFY,
+            "gapped_screen": verify.GAPPED_SCREEN}
+
+
+class SearchCounts:
+    """The three search kernels' launches on the main paths: ``start()``
+    sets their counts to 0 just before a path runs, ``take(path)`` reads
+    them just after, keeps the launches by path and adds the launch shapes
+    to those the search phase holds against plain."""
+
+    def __init__(self):
+        from collections import Counter
+        self.kernels = search_modules()
+        self.by_path = {name: {} for name in SEARCH_KERNELS}
+        self.shapes = {name: Counter() for name in SEARCH_KERNELS}
+
+    def start(self):
+        import torch
+        torch.cuda.synchronize()
+        for k in self.kernels.values():
+            k.launches = 0
+            k.launch_shapes.clear()
+
+    def take(self, path, need=()):
+        """The launches since ``start()``; those named in ``need`` must be
+        above 0."""
+        got = {}
+        for name, k in self.kernels.items():
+            got[name] = k.launches
+            self.by_path[name][path] = \
+                self.by_path[name].get(path, 0) + k.launches
+            self.shapes[name].update(k.launch_shapes)
+        print(f"search kernel launches on {path}: {got}")
+        for name in need:
+            if got[name] == 0:
+                fail(f"{name} was launched no time on {path}")
+        return got
+
+    def add(self, path, name, n, shapes):
+        """Launches counted elsewhere (phase 10b's ranks)."""
+        self.by_path[name][path] = self.by_path[name].get(path, 0) + n
+        for shape, c in shapes:
+            self.shapes[name][tuple(shape)] += c
+
+    def total(self, name):
+        return sum(self.by_path[name].values())
+
+
+def search_index(prefix):
+    """Phase 3's index on the card and its text rows."""
+    from hsa_tpu_torch.index.layout import (DeviceIndex, to_device,
+                                            words_to_device)
+    from hsa_tpu_torch.search import pigeon as pg
+    di = DeviceIndex.load(os.path.join(prefix + ".hsa", "index.npz"))
+    text = read_text(prefix)
+    return (to_device(di, "cuda"), text,
+            words_to_device(pg.pack_text_rows(text), "cuda"))
+
+
+def extend_lanes(idx, B, rev, rs):
+    """B lanes (a, k, l) on the card: narrow intervals at uniform ranks (a
+    third empty, k > l), ends around the primary's block and at n and
+    n + 1, and dead lanes with arbitrary ranks in [0, 2^32)."""
+    import torch
+    n = int(idx.n)
+    prim = int(idx.rev_primary if rev else idx.primary)
+    k = rs.randint(0, n + 2, B).astype(np.int64)
+    l = k + rs.randint(-3, 7, B)
+    edge = np.concatenate([32 * (prim >> 5) + np.arange(-2, 34), [0, n, n + 1],
+                           [0xFFFFFFFF, 1 << 31]])[:B]
+    k[:edge.size] = edge
+    l[:edge.size] = edge + rs.randint(-2, 3, edge.size)
+    l[-1:] = 0xFFFFFFFF                        # l + 1 = 2^32
+    l = np.clip(l, 0, 0xFFFFFFFF)
+    a = rs.randint(0, 6, B).astype(np.int64)
+    dev = lambda x: torch.from_numpy(x).to("cuda")   # noqa: E731
+    return dev(a), dev(k), dev(l)
+
+
+def _exact(name, shape, pairs):
+    """Fail unless every (kernel, plain) tensor pair is equal."""
+    import torch
+    for i, (got, want) in enumerate(pairs):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"{name} at {shape}: output {i} is {got.dtype}"
+                 f"{list(got.shape)}, plain {want.dtype}{list(want.shape)}")
+        if not torch.equal(got, want):
+            d = (got.long() - want.long()).abs().max().item()
+            fail(f"{name} at {shape}: output {i} differs from the plain "
+                 f"version (max |err| {d})")
+
+
+def _time_row(name, shape, launches, fns, bound, int32_ops_s, big):
+    """Device ms of kernel, plain and library (or None) in turns, beside
+    the bound ``(bytes, ops)``; one row of the kernel table."""
+    fns = [f for f in fns if f is not None]
+    ms = device_ms_turns(fns) if not big else [device_ms(f, calls=3)
+                                               for f in fns]
+    t_bytes, t_ops = bound[0] / HBM_BYTES_S, bound[1] / int32_ops_s
+    row = dict(shape=shape, launches=launches, ms=ms[0], plain_ms=ms[1],
+               library_ms=ms[2] if len(ms) > 2 else None,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=bound[0], operations=bound[1], max_abs_err=0)
+    lib = f", library {row['library_ms']:.4f}" if len(ms) > 2 else ""
+    print(f"  {name} {shape}: {launches} launches; device ms kernel "
+          f"{row['ms']:.4f}, plain {row['plain_ms']:.4f}{lib}, bound "
+          f"{row['bound_ms']:.4f} ({row['bound_by']}; {bound[0]} bytes, "
+          f"{bound[1]} operations) -> {row['ms'] / row['bound_ms']:.2f}x")
+    return row
+
+
+def extend_compare(idx, shape, launches, rs, int32_ops_s):
+    """fm_extend at one launch shape ``(B, kind, rev, sharded)`` (unsharded
+    here; the ranks of phase 10b hold their sharded shapes): the kernel
+    through ``fm.extend``/``extend4_flat`` exactly equal to the plain
+    version on the same lanes, then timed beside ``index_select`` of the
+    same rows and the bound."""
+    import torch
+    from hsa_tpu_torch.search import fm
+    B, kind, rev, _ = shape
+    a, k, l = extend_lanes(idx, B, rev, rs)
+    four = kind == "extend4"
+    if four:
+        run_k = lambda: fm.extend4_flat(idx, k, l)              # noqa: E731
+        run_p = lambda: fm.extend4_flat_plain(idx, k, l)        # noqa: E731
+        got, want = (torch.stack(x + y) for x, y in (run_k(), run_p()))
+    else:
+        run_k = lambda: fm.extend(idx, a, k, l, rev=rev)        # noqa: E731
+        run_p = lambda: fm.extend_plain(idx, a, k, l, rev=rev)  # noqa: E731
+        got, want = torch.stack(run_k()), torch.stack(run_p())
+    _exact("fm_extend", shape, [(got, want)])
+    blocks = idx.rev_occ_blocks if rev else idx.occ_blocks
+    ids = torch.cat([k >> 5, (l + 1) >> 5]).clamp(max=blocks.shape[0] - 1)
+    run_l = lambda: blocks.index_select(0, ids)                 # noqa: E731
+    nb = 4 if four else 1
+    nbytes = (B * 4 * (2 if four else 3) + 32 * int(ids.unique().numel())
+              + B * 2 * nb * 8)
+    ops = B * (2 * EXTEND_OPS_PER_END + 2 * nb * EXTEND_OPS_PER_BASE)
+    return _time_row("fm_extend", list(shape), launches, [run_k, run_p, run_l],
+                     (nbytes, ops), int32_ops_s, B > SEARCH_LARGE_LANES)
+
+
+def verify_case(text, P, B, RW, G, rs):
+    """Pool inputs at one shape: B reads of up to 16 (RW - 1) bases cut
+    from the text with a gap of 1 to max(G, 1) bases in half of them, up to
+    two substitutions and an N in every 16th; P candidates of random reads
+    at their origin shifted by up to G bases (and at the text's first and
+    last bases), a tenth not fetched; the in-text test; the gate of about a
+    third; budgets 0 to 4."""
+    import torch
+    from hsa_tpu_torch.search import pigeon as pg
+    n = len(text)
+    L = 16 * (RW - 1)
+    lens = rs.randint(max(L - 15, 1), L + 1, B)
+    lens[0] = L
+    pos = rs.randint(0, n - L - 16, B)
+    reads = []
+    for j in range(B):
+        r = text[pos[j]:pos[j] + lens[j] + 8].copy()
+        g = rs.randint(1, max(G, 1) + 1)
+        t = rs.randint(6, max(lens[j] - 6 - g, 7))
+        if j % 4 == 1:
+            r = np.concatenate([r[:t], r[t + g:]])
+        elif j % 4 == 3:
+            r = np.concatenate([r[:t], rs.randint(0, 4, g).astype(np.int8),
+                                r[t:]])
+        r = r[:lens[j]].copy()
+        for _ in range(rs.randint(0, 3)):
+            q = rs.randint(0, lens[j])
+            r[q] = (r[q] + 1) % 4
+        if j % 16 == 5:
+            r[rs.randint(0, lens[j])] = 4
+        reads.append(r)
+    b = pg.pack_pigeon_batch(reads, n_seg=3)
+    if b["rw"].shape[1] != RW:
+        fail(f"verify case packed {b['rw'].shape[1]} words, not {RW}")
+    md = rs.randint(0, 5, B)
+    combo = np.concatenate([b["rw"], b["vmask"], b["nmask"], b["seedmask"],
+                            (b["lens"] | (md << 16))[:, None]],
+                           axis=1).astype(np.int64)
+    pread = rs.randint(0, B, P)
+    pstart = (pos[pread] + rs.randint(-G, G + 1, P)) & 0xFFFFFFFF
+    pstart[:4] = [0, 1, n - L, (0 - 2) & 0xFFFFFFFF]
+    fetch_ok = rs.rand(P) > 0.1
+    pvalid = fetch_ok & (pstart + lens[pread] <= n) & (rs.rand(P) > 0.05)
+    gate = fetch_ok & (rs.rand(P) < 0.35)
+    dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to("cuda")  # noqa
+    return dict(combo=dev(combo), pstart=dev(pstart.astype(np.int64)),
+                pread=dev(pread.astype(np.int64)), fetch_ok=dev(fetch_ok),
+                pvalid=dev(pvalid), gate=gate)
+
+
+def verify_compare(text, trows, shape, launches, rs, int32_ops_s, opt):
+    """window_verify at one launch shape ``(P, B, RW, G)``: exact against
+    plain on :func:`verify_case`'s inputs, then timed beside its bound (no
+    single PyTorch call computes it)."""
+    from hsa_tpu_torch.kernels import verify
+    P, B, RW, G = shape
+    c = verify_case(text, P, B, RW, G, rs)
+    args = (trows, c["combo"], c["pstart"], c["pread"], c["fetch_ok"],
+            c["pvalid"])
+    kw = dict(G=G, max_seed_diff=opt.max_seed_diff)
+    run_k = lambda: verify.window_verify(*args, **kw)          # noqa: E731
+    run_p = lambda: verify.window_verify_plain(*args, **kw)    # noqa: E731
+    _exact("window_verify", shape, list(zip(run_k(), run_p())))
+    DW = RW - 1
+    reads = int(c["pread"].unique().numel())
+    nbytes = (P * (4 + 4 + 1 + 1) + reads * (4 * RW + 1) * 4
+              + P * (DW + 2) * 4 + P * (1 + 8 + 1) + B * 8)
+    ops = P * DW * VERIFY_OPS_PER_WORD
+    return _time_row("window_verify", list(shape), launches, [run_k, run_p],
+                     (nbytes, ops), int32_ops_s, False)
+
+
+def gapped_compare(text, trows, shape, launches, rs, int32_ops_s, opt):
+    """gapped_screen at one launch shape ``(GP, P, B, RW, G)``: exact
+    against plain on :func:`verify_case`'s inputs (its gate compacted as
+    ``pigeon_search`` compacts it), then timed beside its bound."""
+    import torch
+    from hsa_tpu_torch.kernels import verify
+    from hsa_tpu_torch.search.pigeon import _nonzero_sized
+    GP, P, B, RW, G = shape
+    c = verify_case(text, P, B, RW, G, rs)
+    gate = torch.from_numpy(c["gate"]).to("cuda")
+    n_gate = gate.sum()
+    gidx = _nonzero_sized(gate, GP, P)
+    args = (trows, c["combo"], c["pstart"], c["pread"], c["fetch_ok"], gidx,
+            n_gate)
+    kw = dict(G=G, n=len(text), opt=opt)
+    run_k = lambda: verify.gapped_screen(*args, **kw)          # noqa: E731
+    run_p = lambda: verify.gapped_screen_plain(*args, **kw)    # noqa: E731
+    out = run_k()
+    _exact("gapped_screen", shape, list(zip(out, run_p())))
+    live = int((out[0] != verify.BIGKEY).any(dim=1).sum())
+    print(f"  gapped_screen {list(shape)}: {int(n_gate)} gated, {live} "
+          f"candidates with a scored class, {int(out[3].sum())} drops")
+    DW = RW - 1
+    nbytes = GP * (4 + (4 * RW + 1) * 4 + (DW + 2) * 4 + 2 * 4 * 8 + 8 + 1)
+    ops = GP * G * 16 * DW * GAPPED_OPS_PER_POS
+    return _time_row("gapped_screen", list(shape), launches, [run_k, run_p],
+                     (nbytes, ops), int32_ops_s, False)
+
+
+def search_phase(prefix, counts, seed, int32_ops_s):
+    """Each search kernel held exactly against its plain version on the
+    card and timed, at every unsharded shape the paths launched it at
+    (``counts.shapes``); the sharded ones were held in phase 10b's ranks.
+    Returns the kernel table's rows."""
+    from hsa_tpu_torch.config import AlnOpt
+    t0 = time.perf_counter()
+    idx, text, trows = search_index(prefix)
+    opt = AlnOpt()
+    rs = np.random.RandomState(seed + 23)
+    rows = {name: [] for name in SEARCH_KERNELS}
+    for shape, n in sorted(counts.shapes["fm_extend"].items(),
+                           key=lambda x: (x[0][3], x[0][1:3], x[0][0])):
+        if shape[3]:
+            print(f"  fm_extend {list(shape)}: {n} launches in phase 10b's "
+                  f"ranks (held there)")
+            continue
+        rows["fm_extend"].append(extend_compare(idx, shape, n, rs,
+                                                int32_ops_s))
+    for shape, n in sorted(counts.shapes["window_verify"].items()):
+        rows["window_verify"].append(verify_compare(
+            text, trows, shape, n, rs, int32_ops_s, opt))
+    for shape, n in sorted(counts.shapes["gapped_screen"].items()):
+        rows["gapped_screen"].append(gapped_compare(
+            text, trows, shape, n, rs, int32_ops_s, opt))
+    for name in SEARCH_KERNELS:
+        if not rows[name]:
+            fail(f"{name}: no launch shape to hold against plain")
+    print(f"search kernel phase took {time.perf_counter() - t0:.3f} s")
+    return rows
+
+
+def search_only(prefix, reads, seed, int32_ops_s):
+    """``--search-only``: one batch of phase 3's reads through the pigeon
+    route and 2,048 through the beam on the card, their first 256 also on
+    the CPU (records equal), then phase 13a at the shapes they launched;
+    prints the search kernels' rows."""
+    import torch
+    from hsa_tpu_torch.pipeline import Aligner
+    counts = SearchCounts()
+    for engine, n, need in (("auto", BATCH, SEARCH_KERNELS),
+                            ("beam", 2_048, ("fm_extend",))):
+        al = Aligner(prefix, engine=engine, device="cuda")
+        counts.start()
+        t0 = time.perf_counter()
+        recs = al.align(reads[:n])
+        torch.cuda.synchronize()
+        print(f"Aligner(engine={engine!r}, device='cuda').align on {n} reads: "
+              f"{time.perf_counter() - t0:.3f} s")
+        counts.take(f"align --engine {engine} ({n} reads)", need=need)
+        cpu = Aligner(prefix, engine=engine, device="cpu").align(
+            reads[:CROSS_CHECK])
+        if cpu != recs[:CROSS_CHECK]:
+            fail(f"engine {engine}: the first {CROSS_CHECK} records differ "
+                 "between cuda and cpu")
+        print(f"engine {engine}: the first {CROSS_CHECK} records equal on "
+              "cuda and cpu")
+    rows = search_phase(prefix, counts, seed, int32_ops_s)
+    print(json.dumps({"kernels": search_json(counts, rows)}))
+
+
+def search_json(counts, rows):
+    """The three rows of the kernel table: each kernel's numbers at the
+    unsharded shape the main paths launched most often, every shape under
+    ``shapes``."""
+    out = []
+    for name in SEARCH_KERNELS:
+        top = max(rows[name], key=lambda r: r["launches"])
+        source, replaces = SEARCH_REPLACES[name]
+        out.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=counts.total(name),
+            launches_by_path=counts.by_path[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows[name]),
+            ms=top["ms"], plain_ms=top["plain_ms"],
+            bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+            library_ms=top["library_ms"], shape=top["shape"],
+            ms_per="one launch at the shape launched most often",
+            shapes=rows[name]))
+    return out
+
+
 # -- 12. the oracle: the card's records against the port's branch-and-bound ----
 def oracle_genome(seed, workdir):
     """The oracle phase's genome (ORACLE_BP i.i.d. bases from the seed, as
@@ -4159,6 +4596,17 @@ def main():
     ap.add_argument("--oracle-only", action="store_true",
                     help="only phases 1 and 12 (the card's records against "
                          "the oracle); prints no result line")
+    ap.add_argument("--search-only", action="store_true",
+                    help="only phase 1, phase 3's index, one batch of its "
+                         "reads through the pigeon route and the beam (cuda "
+                         "against cpu on a prefix) and phase 13a at the "
+                         "shapes they launched; prints the search kernels' "
+                         "rows and no result line")
+    ap.add_argument("--profile-only", action="store_true",
+                    help="only phase 1, phase 3's index and reads and phase "
+                         "11's single-end beam and pigeon profiles (a tree "
+                         "without the search kernels runs too, to compare "
+                         "two checkouts); prints no result line")
     ap.add_argument("--api-only", action="store_true",
                     help="only phase 1, phase 3's index and reads, and phase "
                          "10c (the rest of the device API); prints no result "
@@ -4189,7 +4637,26 @@ def main():
 
     phase("1. device and build")
     int32_ops_s = device_info()
-    build_kernels(baseline)
+    build_kernels(baseline, optional_search=a.profile_only)
+    if a.profile_only or a.search_only:
+        workdir = smoke_dir()
+        genome = make_genome(GENOME_BP, a.seed)
+        prefix, index_s = ensure_index(genome, a.seed, workdir)
+        print(f"index build seconds: "
+              f"{index_s if index_s is not None else 'cached'}")
+        reads, _ = make_reads(genome, N_READS, a.seed)
+        del genome
+        if a.search_only:
+            phase(SEARCH_PHASE)
+            search_only(prefix, reads, a.seed, int32_ops_s)
+            return
+        phase("11. where the time goes (warm card): single end, beam and "
+              "pigeon routes")
+        fq = os.path.join(workdir, f"reads_{GENOME_BP}_s{a.seed}.fq")
+        write_fastq(fq, reads)
+        profile_phase(prefix, reads, None, fq, workdir)
+        profile_pigeon_phase(prefix, reads, fq, workdir)
+        return
     if a.glocal_only:
         phase("5. glocal_screen kernel against its plain version and the "
               "native DP")
@@ -4303,9 +4770,12 @@ def main():
     # less the launches that phase 4b makes to time them
     for k in gather.KERNELS.values():
         k.launches = 0
+    counts = SearchCounts()
+    counts.start()
     lines, met = run_align(prefix, fq, workdir, "cuda", "smoke")
     launches = select.KERNEL.launches
     se_launched = dict(select.KERNEL.launch_shapes)
+    counts.take("align --engine beam", need=("fm_extend",))
 
     phase("4. checks")
     batches = met.get("batches", [])
@@ -4363,8 +4833,10 @@ def main():
     select.KERNEL.launches = sw.KERNEL.launches = 0
     sw.KERNEL.launch_shapes.clear()
     select.KERNEL.launch_shapes.clear()
+    counts.start()
     pe_lines, pe_met = run_align_pe(prefix, fq1, fq2, workdir, "cuda",
                                     "smoke_pe")
+    counts.take("align-pe --engine beam", need=("fm_extend",))
     pe_select, pe_glocal = select.KERNEL.launches, sw.KERNEL.launches
     pe_launched = sorted(sw.KERNEL.launch_shapes.elements())
     pe_sel_launched = dict(select.KERNEL.launch_shapes)
@@ -4425,14 +4897,18 @@ def main():
 
     phase("7a. paired ends on the pigeon route: align-pe --device cuda at "
           "the CLI's default engine (auto)")
+    counts.start()
     al_p = kmer_table_phase(prefix)
+    counts.take("the 12-mer table's build", need=("fm_extend",))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     select.KERNEL.launches = sw.KERNEL.launches = 0
     sw.KERNEL.launch_shapes.clear()
     select.KERNEL.launch_shapes.clear()
+    counts.start()
     pp_lines, pp_met = run_align_pe(prefix, pp_fq1, pp_fq2, workdir, "cuda",
                                     "smoke_pe_pigeon", None)
+    counts.take("align-pe --engine auto", need=SEARCH_KERNELS)
     pp_select, pp_glocal = select.KERNEL.launches, sw.KERNEL.launches
     pp_launched = sorted(sw.KERNEL.launch_shapes.elements())
     pp_sel_launched = dict(select.KERNEL.launch_shapes)
@@ -4513,7 +4989,9 @@ def main():
 
     phase(f"7c. the beam ladder: align --engine beam --ladder {LADDER}")
     select.KERNEL.launch_shapes.clear()
+    counts.start()
     ladder_select = ladder_phase(prefix, reads, origin, opt, workdir)
+    counts.take(f"align --ladder {LADDER} (phase 7c)")
     by_path[f"align --ladder {LADDER}"] = select_path_phase(
         f"align --ladder {LADDER}", dict(select.KERNEL.launch_shapes),
         compared, a.seed, int32_ops_s)
@@ -4525,6 +5003,7 @@ def main():
     select.KERNEL.launches = sw.KERNEL.launches = 0
     select.KERNEL.launch_shapes.clear()
     sw.KERNEL.launch_shapes.clear()
+    counts.start()
     with FallbackClock() as clock:
         tp_alns, tp_sais, tp_runs = [], [], []
         for m, fq in ((1, pp_fq1), (2, pp_fq2)):
@@ -4545,6 +5024,7 @@ def main():
         se_lines, se_met = run_resolve(prefix, [se_sai], (p_fq,), workdir,
                                        "cuda", "smoke_samse")
         marks.append(select.KERNEL.launches)
+    counts.take("aln x3, sampe, samse (phase 7d)")
     tp_select = select.KERNEL.launches
     tp_launched = dict(select.KERNEL.launch_shapes)
     # select_topk launches: aln on the mate files, sampe, aln on the single
@@ -4625,8 +5105,10 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     select.KERNEL.launches = 0
     select.KERNEL.launch_shapes.clear()
+    counts.start()
     pg_lines, pg_met = run_align(prefix, p_fq, workdir, "cuda", "smoke_pigeon",
                                  "auto")
+    counts.take("align --engine auto", need=SEARCH_KERNELS)
     pg_select = select.KERNEL.launches
     pg_launched = dict(select.KERNEL.launch_shapes)
     pg_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -4699,7 +5181,9 @@ def main():
     phase("10. repeat path at small size: align_stream with small caps, "
           "cuda against cpu")
     select.KERNEL.launch_shapes.clear()
+    counts.start()
     repeat_select = repeat_phase(a.seed, workdir)
+    counts.take("the repeat path (phase 10)")
     rp_launched = dict(select.KERNEL.launch_shapes)
     if sum(rp_launched.values()) != repeat_select:
         fail(f"the repeat path launched select_topk {repeat_select} times and "
@@ -4709,13 +5193,16 @@ def main():
 
     phase("10b. the sharded index: ShardedIndex over (data, shard) meshes of "
           "ranks on this card, against the unsharded search")
-    shard_select, shard_launched = shard_phase(prefix, reads, a.seed, workdir)
+    shard_select, shard_launched = shard_phase(prefix, reads, a.seed, workdir,
+                                               counts)
     by_path["sharded beam"] = select_path_phase(
         "sharded beam", shard_launched, compared, a.seed, int32_ops_s)
 
     phase(API_PHASE)
+    counts.start()
     api_select, api_rows = device_api_phase(prefix, reads, lines, a.seed,
                                             workdir, int32_ops_s, compared)
+    counts.take("the device API (phase 10c)")
     by_path.update(api_rows)
 
     if a.profile:
@@ -4726,10 +5213,15 @@ def main():
         profile_pigeon_phase(prefix, reads, fq, workdir)
 
     phase(ORACLE_PHASE)
+    counts.start()
     or_select, or_glocal, or_rows, or_glocal_rows = oracle_phase(
         a.seed, workdir, int32_ops_s, compared)
+    counts.take("the oracle (phase 12)")
     by_path.update(or_rows)
     glocal += or_glocal_rows
+
+    phase(SEARCH_PHASE)
+    search_rows = search_phase(prefix, counts, a.seed, int32_ops_s)
 
     gather_main = {name: k.launches - gather_timed[name]
                    for name, k in gather.KERNELS.items()}
@@ -4800,7 +5292,7 @@ def main():
         "ms_per": "one screen of all rescue jobs",
         "shape": glocal[0]["shape"], "shapes": glocal},
         *gather_rows_json(probe_launches, probe_rows, main_table,
-                          gather_main)]}))
+                          gather_main), *search_json(counts, search_rows)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

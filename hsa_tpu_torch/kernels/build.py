@@ -76,7 +76,7 @@ class CudaKernel:
         so = os.path.join(BUILD_DIR, f"lib{stem}_{digest[:16]}.so")
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
+            tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
             cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
             t0 = time.perf_counter()
             r = subprocess.run(cmd, capture_output=True, text=True)

@@ -30,12 +30,21 @@ clamped to the *global* table first, as the unsharded gather clamps it,
 so exactly one shard owns every lane, dead ones included, and a sharded
 result equals the unsharded one bit for bit.  Unsharded indexes (no
 ``shard_group``) run the code below unchanged.
+
+The backward step on the card: :func:`extend` and :func:`extend4_flat`
+take the ``fm_extend`` CUDA kernel (``kernels/extend.py``) for CUDA
+tensors, one launch a step (sharded: then the one merge), and their plain
+versions :func:`extend_plain` and :func:`extend4_flat_plain`, the chain of
+row helpers below, for CPU tensors.  The other primitives are plain torch
+on every device.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from ..kernels import extend as _kx
 
 M32 = 0xFFFFFFFF
 _PAT55 = 0x55555555
@@ -60,6 +69,10 @@ _OFFSET = {"occ_blocks": "row_offset", "rev_occ_blocks": "rev_row_offset",
            "samples": "sample_offset", "sa_direct": "sa_offset"}
 
 
+def _sharded(idx):
+    return getattr(idx, "shard_group", None) is not None
+
+
 def _owned(idx, name, i):
     """Global row ids ``i`` of table ``name`` -> (row ids into the table
     the index holds, own mask [B] or None).
@@ -67,7 +80,7 @@ def _owned(idx, name, i):
     Unsharded: ``i`` and None.  Sharded: ``i`` clamped to the global
     table (``idx.global_rows[name]`` rows), less the shard's offset, and
     the lanes whose row this shard holds (``fm.py:55-71``)."""
-    if getattr(idx, "shard_group", None) is None:
+    if not _sharded(idx):
         return i, None
     local = i.clamp(0, idx.global_rows[name] - 1) - getattr(idx, _OFFSET[name])
     own = (local >= 0) & (local < getattr(idx, name).shape[0])
@@ -84,7 +97,12 @@ def _merge(idx, x, own):
     uint32.  The index's ``collectives`` counter records each call."""
     if own is None:
         return x
-    buf = (x * own).to(torch.int32)
+    return _reduce_words(idx, (x * own).to(torch.int32))
+
+
+def _reduce_words(idx, buf):
+    """One ``all_reduce(SUM)`` of the int32 bit patterns ``buf`` over the
+    shard group, recorded; the sums as int64 in [0, 2^32)."""
     dist.all_reduce(buf, group=idx.shard_group)
     idx.collectives.record(buf)
     return buf.long() & M32
@@ -196,16 +214,34 @@ def occ_lt(idx, a, p, *, rev: bool = False):
                   - torch.where(a == 0, corr, 0), own)
 
 
-def extend(idx, a, k, l, *, rev: bool = False):
-    """Left-extend [k, l] with base a. Empty iff k' > l'.
-
-    Callers mask lanes where a > 3 themselves (N never matches).
-    """
+def extend_plain(idx, a, k, l, *, rev: bool = False):
+    """Left-extend [k, l] with base a (``fm.py:194-206``): ``C[a] +
+    occ_lt(a, k)`` and ``C[a] + occ_lt(a, l + 1) - 1``, both ends through
+    one concatenated row gather (sharded: one merge).  The plain version of
+    the ``fm_extend`` kernel (``kernels/extend.py``)."""
     a = a.clamp(max=3)
     B = k.shape[0]
     o = occ_lt(idx, torch.cat([a, a]), torch.cat([k, l + 1]), rev=rev)
     Ca = idx.C[a]
     return Ca + o[:B], Ca + o[B:] - 1
+
+
+def extend(idx, a, k, l, *, rev: bool = False):
+    """Left-extend [k, l] with base a. Empty iff k' > l'.
+
+    Callers mask lanes where a > 3 themselves (N never matches); a is
+    clamped to 3.  CPU tensors take :func:`extend_plain`; CUDA tensors the
+    ``fm_extend`` kernel, one launch (sharded: then one merge, and ``C``
+    added after it).
+    """
+    if k.device.type == "cpu":
+        return extend_plain(idx, a, k, l, rev=rev)
+    o = _kx.fm_extend(idx, a, k, l, rev=rev)
+    if not _sharded(idx):
+        return o[0], o[1]
+    o = _reduce_words(idx, o)
+    Ca = idx.C[a.clamp(max=3)]
+    return Ca + o[0], Ca + o[1] - 1
 
 
 def extend4(idx, k, l):
@@ -219,16 +255,33 @@ def extend4(idx, k, l):
     return C4 + o[:B], C4 + o[B:] - 1
 
 
-def extend4_flat(idx, k, l):
-    """All-bases extension: two tuples of 4 [B] vectors (k'_a, l'_a).
-
-    One concatenated row gather serves both interval ends.
-    """
+def extend4_flat_plain(idx, k, l):
+    """All-bases extension (``fm.py:217-230``): two tuples of 4 [B]
+    vectors (k'_a, l'_a), one concatenated row gather for both interval
+    ends (sharded: one merge).  The plain version of the ``fm_extend``
+    kernel with all four bases."""
     B = k.shape[0]
     o = occ_lt4_flat(idx, torch.cat([k, l + 1]))
     ks = tuple(idx.C[a] + o[a][:B] for a in range(4))
     ls = tuple(idx.C[a] + o[a][B:] - 1 for a in range(4))
     return ks, ls
+
+
+def extend4_flat(idx, k, l):
+    """All-bases extension: two tuples of 4 [B] vectors (k'_a, l'_a).
+
+    CPU tensors take :func:`extend4_flat_plain`; CUDA tensors the
+    ``fm_extend`` kernel, one launch for both ends and all four bases
+    (sharded: then one merge, and ``C`` added after it).
+    """
+    if k.device.type == "cpu":
+        return extend4_flat_plain(idx, k, l)
+    o = _kx.fm_extend(idx, None, k, l)
+    if _sharded(idx):
+        o = _reduce_words(idx, o)
+        C4 = idx.C[0:4, None]
+        o = torch.cat([C4 + o[:4], C4 + o[4:] - 1])
+    return tuple(o[:4].unbind(0)), tuple(o[4:].unbind(0))
 
 
 def bwt_char(idx, r):

@@ -64,6 +64,11 @@ back to 32 bits (``& M32``) at the same place here, so the in-text tests
 (``fetch_ok``, ``pvalid``, ``q_ok``) decide as they do there.  The host
 side (packing, the fused upload buffer, result finalization) is a copy of
 the reference's numpy code, held bit-equal by the tests.
+
+The verify stages (window + ungapped verify, the gapped screen) are the
+``window_verify`` and ``gapped_screen`` kernels of ``kernels/verify.py``
+on the card and their plain versions on the CPU; the FM steps of the
+anchor scan and the extension loops are ``fm.extend``'s.
 """
 
 from __future__ import annotations
@@ -74,16 +79,18 @@ import numpy as np
 import torch
 
 from ..index.layout import words_to_device
+from ..kernels import verify
+# _expand_prefix: the gapped screen's prefix sums, kept under this name
+from ..kernels.verify import GC_SLOTS, _expand_prefix  # noqa: F401
 from . import fm
 from .exact import as_wide, exact_search
 from .fm import M32
 
 PAD = 5
-_PAT = 0x55555555
+_PAT = verify.PAT
 MAX_READ_LEN = 160
-GC_SLOTS = 4          # gapped q-class slots per pool-2 candidate
-_BIGNMM = 0x3FFF
-_BIGKEY = 0xFFFFFFFF
+_BIGNMM = verify.BIGNMM
+_BIGKEY = verify.BIGKEY
 
 
 class PigeonResult(NamedTuple):
@@ -418,18 +425,6 @@ def _set_at(x, index, values):
     return ext[:x.shape[0]]
 
 
-def _expand_prefix(mm_words, DW):
-    """Pair-bit mismatch words [P, >=DW] -> exclusive per-base prefix sums.
-
-    Returns (P_[P, 16*DW] int32 with P_[:, t] = #mismatches at read
-    positions < t, total [P] int32)."""
-    shifts = (2 * torch.arange(16, device=mm_words.device))[None, None, :]
-    bits = ((mm_words[:, :DW, None] >> shifts) & 1).to(torch.int32)
-    bits = bits.reshape(bits.shape[0], DW * 16)
-    cs = torch.cumsum(bits, dim=1, dtype=torch.int32)
-    return cs - bits, cs[:, -1]
-
-
 def _pair_mask(k):
     """PAT-patterned pairs at positions < k (k int64 in [0, 16])."""
     sh = 2 * (16 - k.clamp(1, 16))
@@ -488,8 +483,6 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
     POOL = pool or 4 * B
     GPOOL = gpool or max(POOL // 4, 8)
     G = max_gap_run(opt, n_seg)      # static max one-run gap length
-    # rows per window fetch: select indices reach ws(<=7) + DW + 1
-    NR = (DW + 16) // 8
     n = int(idx.n)
 
     if vmask is None or seedmask is None:
@@ -689,13 +682,11 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
     # the dead lanes of ``g_q`` are derived from it
     psoff = torch.where(live, soff_f[cg], -(1 << 31)) & M32
     pread = (cidx // CC).clamp(max=B - 1)
-    # ALL per-read verify data in ONE fat row gather (4*RW packed words +
-    # lens|md)
-    combo = torch.cat([rw, vmask, nmask, seedmask,
-                       (lens | (md << 16))[:, None]], dim=1)
-    crow = combo[pread]
-    plens = crow[:, 4 * RW] & 0xFFFF
-    pmd = crow[:, 4 * RW] >> 16
+    # ALL per-read verify data in one matrix (4*RW packed words + lens|md),
+    # which the verify stages read by each candidate's read
+    lens_md = lens | (md << 16)
+    combo = torch.cat([rw, vmask, nmask, seedmask, lens_md[:, None]], dim=1)
+    plens = lens_md[pread] & 0xFFFF
 
     mark("locate")
     # 4. locate pooled candidates (fused-row LF walk, 1 gather/step)
@@ -706,66 +697,24 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
     fetch_ok = in_pool & (((ppos + G) & M32) >= psoff)
     pvalid = (in_pool & (ppos >= psoff) & (((pstart + plens) & M32) <= n))
 
-    mark("window")
-    # 5. window extraction: NR text-row gathers cover
-    #    [pstart - G, pstart - G + 128*NR) in lead-padded row coordinates
-    startf = torch.where(fetch_ok, (pstart + (128 - G)) & M32, 0)
-    r0 = startf >> 7
-    rix = torch.stack([r0 + i for i in range(NR)], dim=1) \
-        .clamp(max=text_rows.shape[0] - 1)
-    words = text_rows[rix.reshape(-1)].long().reshape(POOL, NR * 8) & M32
-    ws = (startf >> 4) & 7
-    sh = (2 * (startf & 15))[:, None]
-    sh_nz = sh > 0
-    inv = torch.where(sh_nz, 32 - sh, 1)
-    # window words: word t starts at base (pstart - G + 16t).  The
-    # reference's per-lane select among the fetched words (``_selectn``, a
-    # tree of ``where``) is one gather on the matrix of those words.
-    both = words.gather(1, ws[:, None] + arange(DW + 2)[None, :])
-    lo, hi = both[:, :DW + 1], both[:, 1:]
-    WW = torch.where(sh_nz, (lo >> sh) | ((hi << inv) & M32), lo)
-    del words, both, lo, hi, rix
-
-    def diag_words(W, d):
-        """Packed window words of diagonal d: base (pstart - G + d + 16t)."""
-        if d == 0:
-            return W[:, :DW]
-        return (W[:, :DW] >> (2 * d)) | ((W[:, 1:DW + 1] << (32 - 2 * d)) & M32)
-
-    def mismatch_words(W, d, row):
-        """Pair-bit mismatch words [P, DW] of diagonal d against the reads
-        of ``row`` (N positions count, positions past the read do not)."""
-        x = diag_words(W, d) ^ row[:, :DW]
-        return ((((x | (x >> 1)) & _PAT) | row[:, 2 * RW:2 * RW + DW])
-                & row[:, RW:RW + DW])
-
-    mark("verify")
-    # 5a. ungapped verify on the central diagonal (d = G)
-    mm = mismatch_words(WW, G, crow)
-    pnmm = fm.popcount32(mm).sum(dim=1)
-    seed_f = fm.popcount32(mm & crow[:, 3 * RW:3 * RW + DW]).sum(dim=1)
-    pvalid = pvalid & (pnmm <= pmd) & (seed_f <= opt.max_seed_diff)
-
-    # 6. results stay in POOL form: pos/nmm/valid/cidx are pool-indexed,
-    # cidx = read-major flat slot id (lane = cidx // CC), so the readback
-    # is O(POOL) whatever CC is.
-    pos_o = torch.where(pvalid, pstart, 0)
-    nmm_o = pnmm.to(torch.uint8)
+    mark("window+verify")
+    # 5. window extraction and the ungapped verify on the central diagonal
+    # (d = G), in one kernel: ``kernels/verify.py``.  Results stay in POOL
+    # form: pos/nmm/valid/cidx are pool-indexed, cidx = read-major flat slot
+    # id (lane = cidx // CC), so the readback is O(POOL) whatever CC is.
+    pvalid, pos_o, nmm_o, n2 = verify.window_verify(
+        text_rows, combo, pstart, pread, fetch_ok, pvalid, G=G,
+        max_seed_diff=opt.max_seed_diff)
 
     # 7. gapped verify (G > 0): pool-2 screen of one-run gap placements
     mark("gapped")
     if G > 0:
-        # per-read best ungapped nmm via scatter-min over the pool
-        n2 = torch.full((B,), _BIGNMM, dtype=i64, device=dev).scatter_reduce(
-            0, pread, torch.where(pvalid, pnmm, _BIGNMM), "amin",
-            include_self=True)
         # gapped records can only enter the reporting window when the
-        # lane's best ungapped score admits them (or no ungapped hit)
+        # lane's best ungapped score (n2) admits them (or no ungapped hit)
         need_gap = n2 * opt.s_mm >= (opt.s_gapo - opt.s_mm)
         gate = fetch_ok & need_gap[pread]
         n_gate = gate.sum()
         gidx = _nonzero_sized(gate, GPOOL, POOL)
-        in_g = arange(GPOOL) < n_gate
         gcut = torch.where(n_gate > GPOOL, gidx[GPOOL - 1], POOL)
         # pool-2 overflow: candidates past the cutoff lose their gapped
         # screen.  Pool order is slot-major (fair), so the loss shaves
@@ -775,121 +724,15 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
         g_lostp = gate & (arange(POOL) > gcut)
         n_missed = n_missed + _add_at(B, torch.where(g_lostp, pread, B),
                                       torch.ones_like(pread))
-
-        g2 = gidx.clamp(max=POOL - 1)
-        pstart2, plens2, pmd2, pread2 = (pstart[g2], plens[g2], pmd[g2],
-                                         pread[g2])
-        crow2 = crow[g2]
-        WW2 = WW[g2]
-        del crow, WW
-
-        i32 = torch.int32
-        LT = 16 * DW
-        lens32 = plens2.to(i32)[:, None]                   # [P2, 1]
-        md32 = pmd2.to(i32)[:, None]
-        seed_start = lens32 - opt.seed_len
-        tpos = torch.arange(LT, dtype=i32, device=dev)[None, :]   # [1, LT]
-        skip = opt.indel_end_skip
-        BIG = _BIGNMM
-        big_col = torch.full((GPOOL, G), BIG, dtype=i32, device=dev)
-
-        def diag_prefix(d):
-            """(mm prefix, mm total, seed prefix, seed total) of diag d."""
-            mmw = mismatch_words(WW2, d, crow2)
-            Pm, Tm = _expand_prefix(mmw, DW)
-            Ps, Ts = _expand_prefix(mmw & crow2[:, 3 * RW:3 * RW + DW], DW)
-            return Pm, Tm[:, None], Ps, Ts[:, None]
-
-        def shift(P, gg):
-            return torch.cat([P[:, gg:], big_col[:, :gg]], dim=1)
-
-        def best(ok_t, q_ok, nmm_t):
-            return torch.where(ok_t & q_ok[:, None], nmm_t, BIG) \
-                .amin(dim=1).long()
-
-        PG, TG, SG, TSG = diag_prefix(G)
-        # per-q-class (delta in [-G, G]) minimum: key = score<<8|g<<4|nmm
-        class_key = [torch.full((GPOOL,), _BIGKEY, dtype=i64, device=dev)
-                     for _ in range(2 * G + 1)]
-
-        def upd_class(ci, nmm_best, g):
-            key = ((nmm_best * opt.s_mm
-                    + (opt.s_gapo + opt.s_gape * (g - 1))) << 8) \
-                | (g << 4) | nmm_best
-            key = torch.where(nmm_best < BIG, key, _BIGKEY)
-            class_key[ci] = torch.minimum(class_key[ci], key)
-
-        for g in range(1, G + 1):
-            feas_g = g <= md32
-            Pp, Tp, Sp, TSp = diag_prefix(G + g)
-            Pm_, Tm_, Sm_, TSm_ = diag_prefix(G - g)
-
-            def ok(tmask, nmm_t, sd_t):
-                return tmask & feas_g & (nmm_t + g <= md32) \
-                    & (sd_t <= opt.max_seed_diff)
-
-            # deletion, gap after anchor: q = pstart (class delta 0)
-            tm = (tpos >= skip) & (tpos <= lens32 - skip)
-            gseed = (tpos > seed_start).to(i32) * g
-            nmm_t = PG + (Tp - Pp)
-            sd_t = SG + (TSp - Sp) + gseed
-            q_ok = (pstart2 < n) & (((pstart2 + plens2 + g) & M32) <= n)
-            upd_class(G, best(ok(tm, nmm_t, sd_t), q_ok, nmm_t), g)
-
-            # deletion, gap before anchor: q = pstart - g (class delta -g)
-            nmm_t = Pm_ + (TG - PG)
-            sd_t = Sm_ + (TSG - SG) + gseed
-            q2 = (pstart2 - g) & M32
-            q_ok = (q2 < n) & (((q2 + plens2 + g) & M32) <= n)
-            upd_class(G - g, best(ok(tm, nmm_t, sd_t), q_ok, nmm_t), g)
-
-            # insertion, gap after anchor: q = pstart (class delta 0);
-            # read positions t..t+g-1 are the inserted run
-            tm_i = (tpos >= skip - 1) & (tpos <= lens32 - skip - g)
-            iseed = (tpos + g - seed_start).clamp(0, g)
-            nmm_t = PG + (Tm_ - shift(Pm_, g))
-            sd_t = SG + (TSm_ - shift(Sm_, g)) + iseed
-            plen_g = (plens2 - g) & M32
-            q_ok = (pstart2 < n) & (((pstart2 + plen_g) & M32) <= n)
-            upd_class(G, best(ok(tm_i, nmm_t, sd_t), q_ok, nmm_t), g)
-
-            # insertion, gap before anchor: q = pstart + g (class delta +g)
-            nmm_t = Pp + (TG - shift(PG, g))
-            sd_t = Sp + (TSG - shift(SG, g)) + iseed
-            q3 = (pstart2 + g) & M32
-            q_ok = (q3 < n) & (((q3 + plen_g) & M32) <= n)
-            upd_class(G + g, best(ok(tm_i, nmm_t, sd_t), q_ok, nmm_t), g)
-            del Pp, Tp, Sp, TSp, Pm_, Tm_, Sm_, TSm_, nmm_t, sd_t
-
-        # top-GC_SLOTS q-classes by packed key (score-major); among equal
-        # keys the lowest class wins (the first minimum): the class index
-        # rides in the low 4 bits of the compared value
-        NCL = 2 * G + 1
-        cls = arange(NCL)[None, :]
-        kmat = torch.stack(class_key, dim=1)               # [P2, 2G+1]
-        qmat = (pstart2[:, None] + (cls - G)) & M32
-        out_k, out_q = [], []
-        for _ in range(min(GC_SLOTS, NCL)):
-            i = ((kmat << 4) | cls).amin(dim=1, keepdim=True) & 15
-            out_k.append(kmat.gather(1, i)[:, 0])
-            out_q.append(qmat.gather(1, i)[:, 0])
-            kmat = torch.where(cls == i, _BIGKEY, kmat)
-        while len(out_k) < GC_SLOTS:
-            out_k.append(torch.full((GPOOL,), _BIGKEY, dtype=i64, device=dev))
-            out_q.append(torch.zeros(GPOOL, dtype=i64, device=dev))
-        g_key = torch.stack(out_k, dim=1)
-        g_q = torch.stack(out_q, dim=1)
+        g_key, g_q, g_read, g_drop = verify.gapped_screen(
+            text_rows, combo, pstart, pread, fetch_ok, gidx, n_gate, G=G,
+            n=n, opt=opt)
         # conservative overflow: a dropped q-class could still enter the
-        # reporting window (score <= kept best + s_mm), so it is counted as
-        # a missed candidate (truncation), like every other capacity miss
-        if NCL > GC_SLOTS:
-            rem_key = kmat.amin(dim=1)
-            g_drop = in_g & (rem_key != _BIGKEY) \
-                & ((rem_key >> 8) <= (out_k[0] >> 8) + opt.s_mm)
-            n_missed = n_missed + _add_at(B, torch.where(g_drop, pread2, B),
-                                          torch.ones_like(pread2))
-        g_key = torch.where(in_g[:, None], g_key, _BIGKEY)
-        g_read = torch.where(in_g, pread2, B)
+        # reporting window, so it is counted as a missed candidate
+        # (truncation), like every other capacity miss
+        if 2 * G + 1 > GC_SLOTS:
+            n_missed = n_missed + _add_at(B, torch.where(g_drop, g_read, B),
+                                          torch.ones_like(g_read))
     else:
         g_q = torch.zeros((1, GC_SLOTS), dtype=i64, device=dev)
         g_key = torch.full((1, GC_SLOTS), _BIGKEY, dtype=i64, device=dev)
