@@ -3799,18 +3799,27 @@ def profile_pe_pigeon_phase(prefix, r1s, r2s, fq1, fq2, workdir):
               f"{met['t_index_load_s']} s")
 
 
+# the tracer's stage spans of one pigeon search, by the names phase 11 prints
+PIGEON_STAGES = {"search.upload": "upload", "search.anchor": "anchor",
+                 "search.extend": "extend",
+                 "search.order_slots": "order+slots",
+                 "search.compact": "compact", "search.locate": "locate",
+                 "search.verify": "window+verify", "search.gapped": "gapped"}
+
+
 def profile_pigeon_phase(prefix, reads, fq, workdir):
     """The pigeon route on the warm card: each batch's pipeline stages one
     after another with the device synchronised between them (host clock);
     one batch's device search under ``torch.profiler``, whole (kernel
     launches, device busy, idle share, peak memory) and then split by the
-    engine's stages (``pigeon_search``'s ``on_stage`` hook: the device is
-    synchronised where a stage ends, so a stage's kernels lie inside its
-    range); then ``align --engine auto --device cuda`` twice more on phase
-    3's reads, which are all eligible."""
+    engine's stages (the tracer's ``search.*`` stage spans, through its
+    listener: the device is synchronised where a stage ends, so a stage's
+    kernels lie inside its range); then ``align --engine auto --device
+    cuda`` twice more on phase 3's reads, which are all eligible."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import (ProfilerActivity, profile, record_function)
+    from hsa_tpu_torch import metrics
     from hsa_tpu_torch.pipeline import Aligner, ReadBatch
     from hsa_tpu_torch.search import pigeon as pg
     al = Aligner(prefix, engine="auto", device="cuda")
@@ -3880,16 +3889,23 @@ def profile_pigeon_phase(prefix, reads, fq, workdir):
 
     open_range = []
 
-    def on_stage(name):     # close the stage that ends, drained; open the next
-        if open_range:
+    def on_span(event, sp):     # a stage that ends is drained first
+        label = PIGEON_STAGES.get(sp.name)
+        if label is None:
+            return
+        if event == "close":
             torch.cuda.synchronize()
             open_range.pop().__exit__(None, None, None)
-        if name is not None:
-            open_range.append(record_function(f"pigeon:{name}"))
+        else:
+            open_range.append(record_function(f"pigeon:{label}"))
             open_range[-1].__enter__()
 
     with profile(activities=acts) as prof:
-        al._pigeon_device(buf, shape, n_seg, on_stage=on_stage)
+        metrics.enable(listener=on_span)
+        try:
+            al._pigeon_device(buf, shape, n_seg)
+        finally:
+            metrics.disable()
         torch.cuda.synchronize()
     kern = device_events(prof)
     stages = [e for e in prof.events() if e.name.startswith("pigeon:")

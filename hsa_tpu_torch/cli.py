@@ -45,7 +45,7 @@ from itertools import zip_longest
 
 import numpy as np
 
-from . import alphabet
+from . import alphabet, metrics
 from .config import AlnOpt, PEOpt, SamseOpt
 from .io.fastq_fast import FastqBatcher
 from .io.fastx import read_fasta, read_fastq, trim_read_length
@@ -467,6 +467,21 @@ def cmd_samse(argv):
     met.dump(a.metrics)
 
 
+@contextlib.contextmanager
+def _traced(met, on: bool):
+    """The tracer on over a command's stream where ``--metrics`` asks for
+    its metrics: each span name's seconds and count go into them."""
+    if not on or metrics.enabled():
+        yield
+        return
+    metrics.enable()
+    try:
+        yield
+    finally:
+        metrics.disable()
+        met.spans = metrics.totals()
+
+
 def _write_stream(stream, out, met, al, path, args_key, *, pairs: bool):
     """Write a stream of ``(start, (SAM lines, flags))`` batches to ``out``:
     per batch its metrics, its lines and the resume manifest.  With
@@ -526,7 +541,7 @@ def cmd_align(argv):
         al.warm_pigeon()       # K-mer tables: built once, loaded after
     args_key = f"align|{a.reads}|{a.batch}|{a.beam_width}|{a.n}"
     sink, done = _sam_sink(a, args_key)
-    with sink as out:
+    with sink as out, _traced(met, bool(a.metrics)):
         if not done:
             out.write(sam_header(al.meta, "align"))
         if done:
@@ -609,7 +624,7 @@ def cmd_align_pe(argv):
         al.warm_pigeon()       # K-mer tables: built once, loaded after
     args_key = f"align-pe|{a.reads1}|{a.reads2}|{a.batch}|{a.beam_width}|{a.n}"
     sink, done = _sam_sink(a, args_key)
-    with sink as out:
+    with sink as out, _traced(met, bool(a.metrics)):
         if not done:
             out.write(sam_header(al.meta, "align-pe"))
         else:

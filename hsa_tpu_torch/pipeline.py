@@ -21,6 +21,7 @@ copy of it, and nothing of ``hsa_tpu`` is imported.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
@@ -32,7 +33,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from . import alphabet, refpack
+from . import alphabet, metrics, refpack
 from .config import AlnOpt, PEOpt, SamseOpt
 from .fmcore import FMIndex
 from .index.layout import (DeviceIndex, build_device_index, to_device,
@@ -166,6 +167,21 @@ def _save_kmer_tables(path, tk, tl):
             os.remove(tmp)
         except OSError:
             pass
+
+
+_FLUSHES = itertools.count(1)
+
+
+def _flush_span(batches, retry_reads, beam_reads):
+    """The span ``stream.flush`` of one pooled flush: its id (inherited by
+    the spans inside it), the first read ordinals of its staged batches and
+    the reads they staged for the retry and for the beam (the retry's
+    failures join the beam's)."""
+    sp = metrics.span("stream.flush")
+    if sp:
+        sp.set(flush=next(_FLUSHES), batches=batches, retry_reads=retry_reads,
+               beam_reads=beam_reads)
+    return sp
 
 
 def _check_engine(engine):
@@ -359,14 +375,12 @@ class Aligner:
                     pg.pack_text_rows(self.text), self.device)
             return self._text_rows
 
-    def _pigeon_device(self, buf, shape, n_seg, prof="base", seg_phase=False,
-                       on_stage=None):
+    def _pigeon_device(self, buf, shape, n_seg, prof="base", seg_phase=False):
         """One fused upload buffer -> device pigeon search at the caps of
         ``prof`` -> PigeonResult of tensors.  vmask/seedmask are derived
-        on the device.  ``on_stage``: ``pigeon_search``'s profiler hook,
-        called here too where the upload begins."""
-        if on_stage:
-            on_stage("upload")
+        on the device.  Traced as the stage ``search.upload`` and then
+        ``pigeon_search``'s stages."""
+        metrics.stage("search.upload")
         seg_cap, CC, pool_mult = self._pigeon_caps(prof)
         trows = self._text_rows_dev()
         tabs = self._kmer_tables() if self._kmer_k > 0 else None
@@ -379,8 +393,7 @@ class Aligner:
                                 rw, nmask, None, None, lens, md, self.opt,
                                 n_seg=n_seg, cand_cap=CC, gpool=B2,
                                 pool=pool_mult * B2, seg_cap=seg_cap,
-                                kmer_seed=seed, seg_phase=seg_phase,
-                                on_stage=on_stage)
+                                kmer_seed=seed, seg_phase=seg_phase)
 
     def _pigeon_pack(self, reads, n_seg, seg_phase=False):
         """Both strands of ``reads`` -> (fused uint32 upload buffer, shape).
@@ -418,9 +431,11 @@ class Aligner:
     def _pigeon_raw(self, reads, n_seg, prof="base", seg_phase=False):
         """Pack both strands, run the device pigeon search -> PigeonResult
         of host arrays."""
-        buf, shape = self._pigeon_pack(reads, n_seg, seg_phase)
-        return pg.fetch_result(self._pigeon_device(buf, shape, n_seg, prof,
-                                                   seg_phase))
+        with metrics.span("search.pack"):
+            buf, shape = self._pigeon_pack(reads, n_seg, seg_phase)
+        res = self._pigeon_device(buf, shape, n_seg, prof, seg_phase)
+        with metrics.span("search.fetch"):
+            return pg.fetch_result(res)
 
     def pigeon_occurrences(self, reads, n_seg):
         """Pigeon search of reads (both strands):
@@ -465,6 +480,7 @@ class Aligner:
         n_seg = max(budg[lens[i]] for i in elig) + 1
         return n_seg, elig
 
+    @metrics.traced("fallback.retry")
     def _pigeon_retry(self, sub, ridx, n_seg):
         """Alternate-partition (seg_phase) pigeon pass over the capacity-
         fallback subset: reads truncated with no verified candidate.
@@ -584,6 +600,7 @@ class Aligner:
 
     def locate_fn(self, ranks: np.ndarray) -> np.ndarray:
         """Text positions (uint32) of SA ranks, located on the device."""
+        metrics.note(located=len(ranks))
         if len(ranks) == 0:
             return np.zeros(0, np.uint32)
         r = torch.from_numpy(np.asarray(ranks).astype(np.int64)).to(self.device)
@@ -625,6 +642,7 @@ class Aligner:
         return ("pigeon", rb, elig, sub, res, self._pigeon_caps(prof)[1],
                 n_seg)
 
+    @metrics.traced("finish.occ")
     def _align_occ(self, handle, *, beam_width=None, max_hits=32,
                    defer_fb=False, defer_retry=False):
         """Search-phase finalization: handle -> (occ dict, truncated[B],
@@ -632,7 +650,7 @@ class Aligner:
 
         Everything record resolution needs except reads/names/quals.
         Includes the rare beam re-run of fallback reads; ``occ["rid"]`` is
-        batch-local.
+        batch-local.  Traced as ``finish.occ``.
 
         ``defer_fb=True`` skips the beam re-run and returns
         (occ, truncated, c2_extra, fb_ids) so a streaming caller can
@@ -725,6 +743,7 @@ class Aligner:
     # capacity miss.
     _FB_MAX_OCC = 256
 
+    @metrics.traced("fallback.beam")
     def _beam_rerun(self, bsub, beam_width=None, max_hits=32):
         """Widest-rung beam over a fallback read list (padded per
         :func:`_beam_pad`).
@@ -733,16 +752,19 @@ class Aligner:
         (repeat-dense or structural): the narrow ladder rungs almost
         always escalate, so go straight to the widest rung (without a
         ladder, the plain beam).  Returns (occs, trunc, low_drops,
-        high_drops) trimmed to ``len(bsub)``.
+        high_drops) trimmed to ``len(bsub)``.  Traced as ``fallback.beam``:
+        the search (pack, steps, readback) and the locate as its children.
         """
         n = len(bsub)
         bsub = list(bsub) + [bsub[0]] * (_beam_pad(n) - n)
-        hf, hr = self.search_batch(bsub, beam_width=beam_width,
-                                   max_hits=max_hits,
-                                   ladder=self.ladder[-1:] if self.ladder
-                                   else None)
-        sub_occs, sub_trunc = collect_occurrences(hf, hr, self.locate_fn,
-                                                  self._FB_MAX_OCC)
+        with metrics.span("fallback.beam.search", reads=n, padded=len(bsub)):
+            hf, hr = self.search_batch(bsub, beam_width=beam_width,
+                                       max_hits=max_hits,
+                                       ladder=self.ladder[-1:] if self.ladder
+                                       else None)
+        with metrics.span("fallback.beam.locate"):
+            sub_occs, sub_trunc = collect_occurrences(hf, hr, self.locate_fn,
+                                                      self._FB_MAX_OCC)
         sld, shd = self.last_overflow
         half = len(bsub)
         ld = np.asarray([max(sld[i], sld[half + i] if len(sld) > half else 0)
@@ -822,19 +844,22 @@ class Aligner:
         #               retry_list, n_seg, stats)
 
         def search(b):
-            return self._align_device(b[2], beam_width=beam_width,
-                                      max_hits=max_hits)
+            with metrics.batch(b[0]):
+                return self._align_device(b[2], beam_width=beam_width,
+                                          max_hits=max_hits)
 
         def finish(b, handle):
             ps, pn, _br, pq = b
-            occ, trunc, c2x, fb_ids, retry_list = self._align_occ(
-                handle, beam_width=beam_width, max_hits=max_hits,
-                defer_fb=True, defer_retry=True)
-            stats = (self.last_fallback_frac, self.last_ineligible_frac,
-                     self.last_trunc_frac, self.last_retry_frac,
-                     self.last_overflow)
-            payload = self._resolve_occ(handle[1], pn, pq, occ, trunc, c2x,
-                                        read_offset=ps, sopt=sopt, emit=emit)
+            with metrics.batch(ps):
+                occ, trunc, c2x, fb_ids, retry_list = self._align_occ(
+                    handle, beam_width=beam_width, max_hits=max_hits,
+                    defer_fb=True, defer_retry=True)
+                stats = (self.last_fallback_frac, self.last_ineligible_frac,
+                         self.last_trunc_frac, self.last_retry_frac,
+                         self.last_overflow)
+                payload = self._resolve_occ(handle[1], pn, pq, occ, trunc,
+                                            c2x, read_offset=ps, sopt=sopt,
+                                            emit=emit)
             n_seg_b = handle[6] if handle[0] == "pigeon" else None
             staged.append((ps, payload, handle[1], pn, pq, fb_ids,
                            retry_list, n_seg_b, stats))
@@ -850,10 +875,52 @@ class Aligner:
 
     def _flush_staged(self, staged, beam_width, max_hits, sopt, emit):
         """Pooled retry + pooled beam + one patch resolve over the staged
-        batches' fallback reads; yields every staged (start, payload) in
-        input order and empties ``staged``."""
+        batches' fallback reads (traced as ``stream.flush``, where there
+        are any); yields every staged (start, payload) in input order
+        (``stream.splice``, ``stream.yield``) and empties ``staged``."""
         if not staged:
             return
+        patch_items, beam_items, patch, sld, shd = [], [], None, None, None
+        if any(ent[5] or ent[6] for ent in staged):
+            with _flush_span([e[0] for e in staged],
+                             sum(len(e[6]) for e in staged),
+                             sum(len(e[5]) for e in staged)):
+                patch_items, beam_items, patch, sld, shd = \
+                    self._pool_staged_se(staged, beam_width, max_hits, sopt,
+                                         emit)
+        # ---- 4. splice + yield in input order --------------------------
+        slot_of = {sj: o for o, sj in enumerate(patch_items)}
+        beam_of = {sj: o for o, sj in enumerate(beam_items)}
+        for si, ent in enumerate(staged):
+            s, payload, rb, bn, bq, fb_ids, retry_list, _ns, st = ent
+            with metrics.span("stream.splice", batch=s):
+                # device-search counters (beam-routed batches carry real
+                # drops); the pooled re-run overwrites its reads
+                ld, hd = (np.asarray(st[4][0], np.int32).copy(),
+                          np.asarray(st[4][1], np.int32).copy())
+                for j in list(fb_ids) + [j for j, _m in retry_list]:
+                    o = slot_of.get((si, j))
+                    if o is None:       # proven-unmapped retry read
+                        continue
+                    if emit == "sam":
+                        payload[0][j] = patch[0][o]
+                        payload[1][j] = patch[1][o]
+                    else:
+                        payload[j] = patch[o]
+                    bo = beam_of.get((si, j))
+                    if bo is not None:
+                        ld[j] = sld[bo]
+                        hd[j] = shd[bo]
+                (self.last_fallback_frac, self.last_ineligible_frac,
+                 self.last_trunc_frac, self.last_retry_frac) = st[:4]
+                self.last_overflow = (ld, hd)
+            with metrics.span("stream.yield", batch=s):
+                yield s, payload
+        staged.clear()
+
+    def _pool_staged_se(self, staged, beam_width, max_hits, sopt, emit):
+        """Steps 1-3 of :meth:`_flush_staged`: (patch_items, beam_items,
+        patch records, beam low drops, beam high drops)."""
         # ---- 1. pooled seg_phase retry (grouped by n_seg) --------------
         retry_groups: dict = {}
         for si, ent in enumerate(staged):
@@ -905,6 +972,7 @@ class Aligner:
             socc["rid"] = socc["rid"] + base
             occ_parts.append(socc)
         # ---- 3. one patch resolve over every pooled read ---------------
+        patch = None
         if patch_items:
             occ_all = (occ_parts[0] if len(occ_parts) == 1 else
                        {k: np.concatenate([p[k] for p in occ_parts])
@@ -924,33 +992,7 @@ class Aligner:
                 occ_all, trunc_p, self.opt, sopt, emit=emit,
                 c2_extra=np.asarray(c2x_p, np.int64),
                 hash_ids=np.asarray(gids, np.int64))
-        # ---- 4. splice + yield in input order --------------------------
-        slot_of = {sj: o for o, sj in enumerate(patch_items)}
-        beam_of = {sj: o for o, sj in enumerate(beam_items)}
-        for si, ent in enumerate(staged):
-            s, payload, rb, bn, bq, fb_ids, retry_list, _ns, st = ent
-            # device-search counters (beam-routed batches carry real
-            # drops); the pooled re-run overwrites its reads
-            ld, hd = (np.asarray(st[4][0], np.int32).copy(),
-                      np.asarray(st[4][1], np.int32).copy())
-            for j in list(fb_ids) + [j for j, _m in retry_list]:
-                o = slot_of.get((si, j))
-                if o is None:       # proven-unmapped retry read
-                    continue
-                if emit == "sam":
-                    payload[0][j] = patch[0][o]
-                    payload[1][j] = patch[1][o]
-                else:
-                    payload[j] = patch[o]
-                bo = beam_of.get((si, j))
-                if bo is not None:
-                    ld[j] = sld[bo]
-                    hd[j] = shd[bo]
-            (self.last_fallback_frac, self.last_ineligible_frac,
-             self.last_trunc_frac, self.last_retry_frac) = st[:4]
-            self.last_overflow = (ld, hd)
-            yield s, payload
-        staged.clear()
+        return patch_items, beam_items, patch, sld, shd
 
     # -- paired ends ---------------------------------------------------------
     def align_pe(self, reads1, reads2, names=None, quals1=None, quals2=None, *,
@@ -996,6 +1038,7 @@ class Aligner:
         return ("pigeon", B, n_seg, elig, psub, res,
                 self._pigeon_caps(prof)[1])
 
+    @metrics.traced("finish.occ")
     def _align_pe_occ(self, handle, all_reads, *, beam_width=None,
                       max_hits=32, defer: bool = False,
                       peopt: PEOpt | None = None):
@@ -1127,7 +1170,9 @@ class Aligner:
         grouping differs.  Clean batches resolve and yield immediately.
         Every batch is resolved right before its own yield, so the
         per-batch attributes (``last_*_frac``, ``last_overflow``,
-        ``last_rescue_jobs``) read after a yield are that batch's.
+        ``last_rescue_jobs``) read after a yield are that batch's.  Traced
+        as :meth:`align_stream` is; a flush's resolves are per batch, after
+        ``stream.flush``.
         """
         fb_flush = self._FB_FLUSH if fb_flush is None else fb_flush
         fb_group = self._FB_GROUP if fb_group is None else fb_group
@@ -1136,15 +1181,17 @@ class Aligner:
         staged = []
 
         def search(b):
-            all_reads = _pe_reads(b[2], b[4])
-            return all_reads, self._pe_search(all_reads, beam_width=beam_width,
-                                              max_hits=max_hits)
+            with metrics.batch(b[0]):
+                all_reads = _pe_reads(b[2], b[4])
+                return all_reads, self._pe_search(
+                    all_reads, beam_width=beam_width, max_hits=max_hits)
 
         def finish(b, found):
             all_reads, handle = found
-            occ, trunc, c2x, fb_ids, retry_list = self._align_pe_occ(
-                handle, all_reads, beam_width=beam_width, max_hits=max_hits,
-                defer=True, peopt=peopt)
+            with metrics.batch(b[0]):
+                occ, trunc, c2x, fb_ids, retry_list = self._align_pe_occ(
+                    handle, all_reads, beam_width=beam_width,
+                    max_hits=max_hits, defer=True, peopt=peopt)
             stats = (self.last_fallback_frac, self.last_ineligible_frac,
                      self.last_retry_frac)
             n_seg_b = handle[2] if handle[0] == "pigeon" else None
@@ -1157,19 +1204,26 @@ class Aligner:
              _ns, st, self.last_overflow) = ent
             (self.last_fallback_frac, self.last_ineligible_frac,
              self.last_retry_frac) = st
-            return s, self._resolve_pe(r1, r2, n1, q1, q2, occ, trunc, c2x,
+            with metrics.batch(s):
+                out = self._resolve_pe(r1, r2, n1, q1, q2, occ, trunc, c2x,
                                        read_offset=s, peopt=peopt, emit=emit)
+            with metrics.span("stream.yield", batch=s):
+                yield s, out
 
         def flush():
-            self._pool_staged_pe(staged, beam_width, max_hits)
+            if staged:
+                with _flush_span([e[0] for e in staged],
+                                 sum(len(e[11]) for e in staged),
+                                 sum(len(e[10]) for e in staged)):
+                    self._pool_staged_pe(staged, beam_width, max_hits)
             for ent in staged:
-                yield resolve_one(ent)
+                yield from resolve_one(ent)
             staged.clear()
 
         for ent in _pipelined(batches, search, finish):
             if not ent[10] and not ent[11]:
                 yield from flush()          # keep output in input order
-                yield resolve_one(ent)
+                yield from resolve_one(ent)
                 continue
             staged.append(ent)
             fb_pending = sum(len(e[10]) + len(e[11]) for e in staged)
@@ -1240,21 +1294,25 @@ class Aligner:
 def _pipelined(batches, search, finish):
     """Up to ``STREAM_DEPTH`` batches go through ``search`` ahead on worker
     threads while the main thread runs ``finish(batch, handle)`` on the
-    oldest; yields its results in input order."""
+    oldest; yields its results in input order.  The main thread's waits
+    are the spans ``stream.wait_input`` and ``stream.wait_search``."""
     ex = ThreadPoolExecutor(max_workers=STREAM_DEPTH)
     try:
         pending = deque()
         it = iter(batches)
         while True:
             while len(pending) < STREAM_DEPTH:
-                b = next(it, None)
+                with metrics.span("stream.wait_input"):
+                    b = next(it, None)
                 if b is None:
                     break
                 pending.append((b, ex.submit(search, b)))
             if not pending:
                 break
             b, fut = pending.popleft()
-            yield finish(b, fut.result())
+            with metrics.span("stream.wait_search", batch=b[0]):
+                found = fut.result()
+            yield finish(b, found)
     finally:
         ex.shutdown(wait=True)
 

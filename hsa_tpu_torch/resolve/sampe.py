@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import alphabet, refpack
+from .. import alphabet, metrics, refpack
 from ..config import AlnOpt, PEOpt
 from ..index.layout import resolve_device
 from ..kernels.sw import glocal_screen
@@ -878,6 +878,7 @@ def _pair_matrix(posm, scm, stm, glm, okm, mean, std, max_isize):
     return has, a_i, b_i, ins_sel, n_best, subo, best_sc
 
 
+@metrics.traced("resolve")
 def resolve_pe_from_occ_arrays(text, meta, reads1, reads2, names, quals1,
                                quals2, occ, opt: AlnOpt,
                                peopt: PEOpt | None = None,
@@ -899,7 +900,13 @@ def resolve_pe_from_occ_arrays(text, meta, reads1, reads2, names, quals1,
     called with :func:`_rescue_batch`'s first five parameters, and an
     aligner passes :func:`_rescue_batch` bound to its device, so nothing
     here chooses a device.
+
+    Traced as ``resolve`` with the stages ``resolve.pair`` (matrices, span
+    filter, groups, pairing windows, insert size, pairing, non-proper
+    picks), ``resolve.rescue`` (the mate rescue and the rescued ends'
+    records), ``resolve.cores`` (MAPQ, pick cores, XA) and ``resolve.emit``.
     """
+    metrics.stage("resolve.pair")
     peopt = peopt or PEOpt()
     B = len(reads1)
     N = 2 * B
@@ -1073,6 +1080,7 @@ def resolve_pe_from_occ_arrays(text, meta, reads1, reads2, names, quals1,
     if NO:
         pick_ent[pe_sel] = grp_first[g_of[pe_sel]] + pick_slot[pe_sel]
 
+    metrics.stage("resolve.rescue")
     # ---- mate rescue (batched device screen; rare) -----------------------
     rescued = np.zeros(N, bool)
     rescue_occ: dict[int, Occurrence] = {}
@@ -1109,6 +1117,7 @@ def resolve_pe_from_occ_arrays(text, meta, reads1, reads2, names, quals1,
                 elif u2:
                     jobs.append((j, 1, _anchor(B + j), rdmat[j, :lens[j]],
                                  int(lens[j])))
+        metrics.note(jobs=len(jobs))
         for j, missing, res in rescue(text, meta, jobs, rlim, opt):
             if res is None:
                 continue
@@ -1117,6 +1126,16 @@ def resolve_pe_from_occ_arrays(text, meta, reads1, reads2, names, quals1,
             rescued[e] = True
             proper[j] = True
 
+    # ---- rescued-end records (rare; per-record twin keeps byte parity) ---
+    rescue_rec: dict[int, AlnRecord] = {}
+    for e, o in rescue_occ.items():
+        qsrc = quals1 if e < B else quals2
+        q = qsrc[e % B] if qsrc else "*"
+        rec = _make_record(text, meta, rdmat[e, :lens[e]].astype(np.int8),
+                           names[e % B], q, o, 0, opt)
+        rescue_rec[e] = rec
+
+    metrics.stage("resolve.cores")
     # ---- per-end c1/c2 + MAPQ (vector approx_mapq + paired adjust) -------
     c1_end = np.minimum(nbest_end, 256)
     x_end = np.minimum(c2x_a, 255)
@@ -1311,15 +1330,7 @@ def resolve_pe_from_occ_arrays(text, meta, reads1, reads2, names, quals1,
                     f"{a_off1[i]},{cg},{nm_i}")
             xa_of = {e: ";".join(p) + ";" for e, p in parts_of.items()}
 
-    # ---- rescued-end records (rare; per-record twin keeps byte parity) ---
-    rescue_rec: dict[int, AlnRecord] = {}
-    for e, o in rescue_occ.items():
-        qsrc = quals1 if e < B else quals2
-        q = qsrc[e % B] if qsrc else "*"
-        rec = _make_record(text, meta, rdmat[e, :lens[e]].astype(np.int8),
-                           names[e % B], q, o, 0, opt)
-        rescue_rec[e] = rec
-
+    metrics.stage("resolve.emit")
     # ---- emit loop: string assembly only ---------------------------------
     emit_sam = emit == "sam"
     records: list = []

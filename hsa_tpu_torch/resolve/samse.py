@@ -20,7 +20,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import alphabet, refpack
+from .. import alphabet, metrics, refpack
 from ..config import AlnOpt, SamseOpt
 from .cigar import banded_global, cigar_stats, cigar_string
 from .mapq import approx_mapq, trunc_capped_mapq
@@ -251,6 +251,7 @@ def resolve_from_occurrences(text, meta, reads, names, quals, occs, truncated,
 _DECODE_LUT = np.frombuffer(b"ACGTNN", dtype=np.uint8).copy()
 
 
+@metrics.traced("resolve")
 def resolve_from_occ_arrays(text, meta, reads, names, quals, occ, truncated,
                             opt: AlnOpt, sopt: SamseOpt | None = None,
                             read_offset: int = 0, emit: str = "records",
@@ -266,7 +267,12 @@ def resolve_from_occ_arrays(text, meta, reads, names, quals, occ, truncated,
     numeric work — span filter, window/c1/c2 counting, primary pick,
     MAPQ, ungapped NM/mismatch extraction — is numpy-vectorized, and the
     per-read Python that remains is string assembly only.
+
+    Traced as ``resolve`` with the stages ``resolve.prep`` (span filter,
+    matrices, groups, MAPQ, ungapped refinement), ``resolve.cores`` (the
+    batched gapped cores and XA) and ``resolve.emit`` (the records).
     """
+    metrics.stage("resolve.prep")
     sopt = sopt or SamseOpt()
     B = len(reads)
     is_rb = hasattr(reads, "mat") and hasattr(reads, "lens")  # ReadBatch
@@ -444,6 +450,7 @@ def resolve_from_occ_arrays(text, meta, reads, names, quals, occ, truncated,
     mmrows_l = {j: v.tolist() for j, v in mm_rows.items()}
     winmm_l = {j: win_of[j][mm_rows[j]].tolist() for j in mm_rows}
 
+    metrics.stage("resolve.cores")
     # ---- gapped record cores + XA alternates, batched ------------------
     # ONE native rp_banded_batch call covers every gapped pick and every
     # gapped XA alternate (no per-record ctypes round trips); ungapped-alternate
@@ -547,6 +554,7 @@ def resolve_from_occ_arrays(text, meta, reads, names, quals, occ, truncated,
                     f"{a_off1[i]},{cg},{nm_i}")
             xa_of = {j: ";".join(p) + ";" for j, p in nm_parts.items()}
 
+    metrics.stage("resolve.emit")
     emit_sam = emit == "sam"
     records = []
     flags_out = []

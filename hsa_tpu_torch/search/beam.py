@@ -38,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import metrics
 from ..kernels.select import KEY_SH, SENT, select_topk
 from . import fm
 from .widths import cal_width_device
@@ -216,6 +217,7 @@ def beam_search(idx, reads_fwd, lens, D, max_diff, opt, *,
     def matT(xs):
         return torch.cat([x.reshape(W, B) for x in xs], dim=0)
 
+    metrics.note(steps=n_steps)
     for _ in range(n_steps):
         i, nmm, ngapo, ngape, seed_mm, st = _unpack(meta)
         ndiff = nmm + ngapo + ngape

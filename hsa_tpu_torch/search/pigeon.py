@@ -78,6 +78,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import metrics
 from ..index.layout import words_to_device
 from ..kernels import verify
 # _expand_prefix: the gapped screen's prefix sums, kept under this name
@@ -435,8 +436,7 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
                   vmask, seedmask, lens, md, opt, *, n_seg: int = 3,
                   seg_cap: int = 32, cand_cap: int = 32,
                   pool: int | None = None, gpool: int | None = None,
-                  kmer_seed=None, seg_phase: bool = False,
-                  on_stage=None) -> PigeonResult:
+                  kmer_seed=None, seg_phase: bool = False) -> PigeonResult:
     """Device pigeonhole search (see module docstring), on ``idx.device``.
 
     Array arguments are tensors on that device or numpy arrays (copied
@@ -455,12 +455,13 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
     wait for the device per batch) and skips both loops when it is 0, the
     common case; otherwise each step reads ``alive.any()``.
 
-    ``on_stage``: optional callable, called with a stage's name where the
-    stage begins and with None at the end: a profiler's hook (it may wait
-    for the device there); it changes no result.
+    Traced (:mod:`hsa_tpu_torch.metrics`) as the consecutive stages
+    ``search.anchor``, ``search.extend``, ``search.order_slots``,
+    ``search.compact``, ``search.locate``, ``search.verify`` and
+    ``search.gapped``, each from where its host code begins; the device
+    work a stage queues may run later.
     """
-    mark = on_stage or (lambda name: None)
-    mark("anchor")
+    metrics.stage("search.anchor")
     dev = idx.device
     i64 = torch.int64
 
@@ -513,7 +514,7 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
         short_fb = (seg_short != 0).reshape(n_seg, B).any(dim=0)
     w = torch.where(matched, l - k + 1, 0)
 
-    mark("extend")
+    metrics.stage("search.extend")
     # 1b. wide-anchor rescue (repeat tolerance): anchors whose interval
     # exceeds seg_cap are extended backward through their OWN segment.
     # Completeness holds because an alignment whose segment is exact has
@@ -618,7 +619,7 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
     kk = k.reshape(n_seg, B)
     soff = seg_off.reshape(n_seg, B)
 
-    mark("order+slots")
+    metrics.stage("search.order_slots")
     # 1d. narrowest-first per-read segment order: the narrowest matched
     # segment has the fewest repeat copies and so carries the most
     # information per slot, so it claims slots first.  Both the CC cap and
@@ -655,7 +656,7 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
     ranks_f = ranks.T.reshape(-1)
     soff_f = soff_m.T.reshape(-1)
 
-    mark("compact")
+    metrics.stage("search.compact")
     # 3. dense pool compaction (dead slots pay nothing downstream).
     # Compaction priority is SLOT-MAJOR: every lane's first candidate
     # outranks any lane's second, so pool overflow shaves candidates
@@ -688,7 +689,7 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
     combo = torch.cat([rw, vmask, nmask, seedmask, lens_md[:, None]], dim=1)
     plens = lens_md[pread] & 0xFFFF
 
-    mark("locate")
+    metrics.stage("search.locate")
     # 4. locate pooled candidates (fused-row LF walk, 1 gather/step)
     ppos = fm.locate(idx, torch.where(in_pool, pranks, 0))
     pstart = (ppos - psoff) & M32              # wraps when ppos < psoff
@@ -697,7 +698,7 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
     fetch_ok = in_pool & (((ppos + G) & M32) >= psoff)
     pvalid = (in_pool & (ppos >= psoff) & (((pstart + plens) & M32) <= n))
 
-    mark("window+verify")
+    metrics.stage("search.verify")
     # 5. window extraction and the ungapped verify on the central diagonal
     # (d = G), in one kernel: ``kernels/verify.py``.  Results stay in POOL
     # form: pos/nmm/valid/cidx are pool-indexed, cidx = read-major flat slot
@@ -707,7 +708,7 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
         max_seed_diff=opt.max_seed_diff)
 
     # 7. gapped verify (G > 0): pool-2 screen of one-run gap placements
-    mark("gapped")
+    metrics.stage("search.gapped")
     if G > 0:
         # gapped records can only enter the reporting window when the
         # lane's best ungapped score (n2) admits them (or no ungapped hit)
@@ -749,7 +750,7 @@ def pigeon_search(idx, text_rows, segs_rev, seg_lens, seg_off, rw, nmask,
         # the MAX_GAP_RUN clamp bound: reads whose budget admits a gap
         # run longer than the screened G must take the exhaustive beam
         fallback = fallback | (md > G)
-    mark(None)
+    metrics.stage(None)
     i32 = torch.int32
     return PigeonResult(pos=pos_o, nmm=nmm_o, valid=pvalid,
                         cidx=cidx.to(i32), fallback=fallback,

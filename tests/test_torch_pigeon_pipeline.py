@@ -334,8 +334,9 @@ def test_cli_align_auto_matches_jax_cli(tmp_path):
     mt = json.load(open(tmp_path / "port.json"))
     assert mt["config"]["engine"] == mj["config"]["engine"] == "auto"
     # the port's metrics hold the reference's keys, plus the device in the
-    # config and each batch's wait
-    assert set(mt) == set(mj)
+    # config, each batch's wait and each span name's seconds and count
+    assert set(mt) == set(mj) | {"spans"}
+    assert mt["spans"]["stream.yield"]["n"] == 3
     assert set(mt["config"]) == set(mj["config"]) | {"device"}
     timers = {k for k in mj if k.startswith("t_")} | {"wall_s", "config",
                                                        "batches"}
