@@ -23,8 +23,9 @@ record parity holds):
 
 Counterpart of ``hsa_tpu/resolve/sampe.py``.  The one part that differs is
 the mate rescue, :func:`_rescue_batch`: it screens every job in one glocal
-DP on a torch device (:mod:`hsa_tpu_torch.kernels.sw`) and traces back
-only the accepted jobs natively; the records are the same.
+DP on a torch device (:mod:`hsa_tpu_torch.kernels.sw`), traces back only
+the accepted jobs natively and counts their mismatches and gaps in array
+passes over all of them; the records are the same.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ from .. import alphabet, metrics, refpack
 from ..config import AlnOpt, PEOpt
 from ..index.layout import resolve_device
 from ..kernels.sw import glocal_screen
-from .cigar import cigar_stats
 from .mapq import approx_mapq, trunc_capped_mapq
 from .samse import (_DECODE_LUT, _HASH, AlnRecord, Occurrence,
                     _make_record, _span_possible, collect_occurrences)
@@ -709,52 +709,63 @@ def _cigar_ref_span(cigar_str: str) -> int:
     return span
 
 
-def _rescue_window(text, meta, anchor: Occurrence, L: int, rlim: int):
-    """(lo, hi, strand) of the FR-implied rescue window for the missing mate.
+def _rescue_windows(text, meta, apos, astrand, lens, rlim: int):
+    """(lo, hi, strand) arrays of the FR-implied rescue windows of the
+    missing mates, for anchors at ``apos`` on ``astrand`` and mates of
+    ``lens`` bases.
 
-    Clamped to the anchor's own reference sequence so a rescued mate can
-    never be placed across (or inside) a different chromosome of the
-    concatenated text.
+    Each window is clamped to its anchor's own reference sequence so a
+    rescued mate can never be placed across (or inside) a different
+    chromosome of the concatenated text.
     """
-    ri, _ = meta.pos_to_ref(anchor.pos)
-    seq_lo = int(meta.starts[ri]) if ri >= 0 else 0
-    seq_hi = (int(meta.starts[ri] + meta.lengths[ri]) if ri >= 0 else len(text))
-    if anchor.strand == 0:
-        lo = anchor.pos
-        hi = min(seq_hi, anchor.pos + max(rlim, L + 8))
-        strand = 1
-    else:
-        hi = min(seq_hi, anchor.pos + L + 8)
-        lo = max(seq_lo, hi - max(rlim, L + 8))
-        strand = 0
-    return lo, hi, strand
+    starts = np.asarray(meta.starts, np.int64)
+    ends = starts + np.asarray(meta.lengths, np.int64)
+    ri = np.searchsorted(starts, apos, side="right") - 1
+    ric = np.maximum(ri, 0)
+    inside = (ri >= 0) & (apos < ends[ric])
+    seq_lo = np.where(inside, starts[ric], 0)
+    seq_hi = np.where(inside, ends[ric], len(text))
+    reach = np.maximum(rlim, lens + 8)
+    fwd = astrand == 0
+    hi = np.minimum(seq_hi, apos + np.where(fwd, reach, lens + 8))
+    lo = np.where(fwd, apos, np.maximum(seq_lo, hi - reach))
+    return lo, hi, fwd.astype(np.int64)
 
 
-def _cigar_from_ops(ops):
-    """uint8 op codes (0=M 1=I 2=D) -> run-length cigar list."""
-    cigar = []
-    for op in ops:
-        ch = "MID"[op]
-        if cigar and cigar[-1][0] == ch:
-            cigar[-1][1] += 1
-        else:
-            cigar.append([ch, 1])
-    return [(op, ln) for op, ln in cigar]
+def _trace_counts(ops, start, lo, reads, text):
+    """Per job: mismatches, inserted bases, deleted bases and gap opens of
+    the tracebacks ``ops`` (uint8 op codes 0=M 1=I 2=D, one array a job),
+    in array passes over every job at once.
 
-
-def _rescue_accept(text, lo, hi, strand, target, L, cost, start, cigar,
-                   opt: AlnOpt):
-    """Shared acceptance rule + Occurrence construction for a rescue."""
-    budget = max(opt.diff_budget(L), round(0.15 * L))
-    if start < 0 or cost > budget * opt.s_mm:
-        return None
-    n_ins = sum(ln for op, ln in cigar if op == "I")
-    n_del = sum(ln for op, ln in cigar if op == "D")
-    n_opens = sum(1 for op, ln in cigar if op in ("I", "D"))
-    window = np.asarray(text[lo:hi])
-    nm, _ = cigar_stats(cigar, target, window[start:start + L + n_del])
-    return Occurrence(lo + start, strand, cost, nm - n_ins - n_del,
-                      n_opens, max(n_ins + n_del - n_opens, 0))
+    Job k aligns row k of ``reads`` to ``text`` from ``lo[k] + start[k]``.
+    A mismatch is an M op whose read base is above 3 or differs from the
+    text's: the rule of ``cigar.cigar_stats``, whose NM is the mismatches
+    plus the gap bases.  A gap open is the first op of an I or D run.
+    """
+    K = len(ops)
+    n = np.fromiter(map(len, ops), np.int64, K)
+    op = np.concatenate(ops) if K else np.zeros(0, np.uint8)
+    job = np.repeat(np.arange(K), n)
+    n_ins = np.bincount(job[op == 1], minlength=K)
+    n_del = np.bincount(job[op == 2], minlength=K)
+    # read and window index at each op: exclusive running counts of the
+    # ops that consume each, restarted at every job's first op
+    eat_r = (op != 2).astype(np.int64)
+    eat_w = (op != 1).astype(np.int64)
+    n_r = n - n_del
+    n_w = n - n_ins
+    ri = np.cumsum(eat_r) - eat_r - np.repeat(np.cumsum(n_r) - n_r, n)
+    wi = np.cumsum(eat_w) - eat_w - np.repeat(np.cumsum(n_w) - n_w, n)
+    m = op == 0
+    jm = job[m]
+    rb = reads[jm, ri[m]]
+    tb = text[lo[jm] + start[jm] + wi[m]]
+    n_mm = np.bincount(jm[(rb > 3) | (rb != tb)], minlength=K)
+    first = np.ones(op.size, bool)
+    first[1:] = op[1:] != op[:-1]
+    first[(np.cumsum(n) - n)[n > 0]] = True
+    n_open = np.bincount(job[first & (op != 0)], minlength=K)
+    return n_mm, n_ins, n_del, n_open
 
 
 def _rescue_batch(text, meta, jobs, rlim, opt: AlnOpt, device):
@@ -762,9 +773,9 @@ def _rescue_batch(text, meta, jobs, rlim, opt: AlnOpt, device):
     ``(pair_idx, missing_end, Occurrence | None)`` in job order.
 
     ``jobs``: ``[(pair_idx, missing_end, anchor, read, L)]``.  Screen, then
-    traceback:
+    traceback, each step in array passes over every job:
 
-    1. the windows from :func:`_rescue_window`;
+    1. the windows from :func:`_rescue_windows`;
     2. one :func:`~hsa_tpu_torch.kernels.sw.glocal_screen` over every job
        on ``device`` (required: ``"cuda"``, or ``"cpu"`` when the caller
        asks for the plain version), at the jobs' exact shapes (nothing
@@ -772,29 +783,36 @@ def _rescue_batch(text, meta, jobs, rlim, opt: AlnOpt, device):
     3. a job is dropped when its window is shorter than its read or its
        cost is above ``max(diff_budget(L), round(0.15 L)) * s_mm``;
     4. the native ``glocal_batch`` traces back only the jobs that are left;
-    5. :func:`_rescue_accept` / :func:`_cigar_from_ops` build the
-       occurrences.
+    5. :func:`_trace_counts` counts the mismatches and gaps of every
+       traceback, and a job whose traceback starts in its window at a cost
+       within its budget becomes ``Occurrence(lo + start, strand, cost,
+       mismatches, gap opens, max(gap bases - opens, 0))``.
 
     The screen's cost equals the native DP's (both are twins of the
     reference's ``fit_in_window``), so the jobs dropped in step 3 are
-    exactly those that :func:`_rescue_accept` would reject, and the records
-    equal those of ``hsa_tpu/resolve/sampe.py:_rescue_batch``, which traces
-    back every job natively.
+    exactly those that step 5 would reject, and the records equal those of
+    ``hsa_tpu/resolve/sampe.py:_rescue_batch``, which traces back every job
+    natively and counts each with ``cigar_stats``.
     """
     if not jobs:
         return
     R = len(jobs)
-    prepped = []
-    for j, missing, anchor, read, L in jobs:
-        lo, hi, strand = _rescue_window(text, meta, anchor, L, rlim)
-        target = alphabet.revcomp(read) if strand == 1 else np.asarray(read)
-        prepped.append((j, missing, lo, hi, strand, target, L))
-    lens = np.fromiter((p[6] for p in prepped), np.int32, R)
-    lo = np.fromiter((p[2] for p in prepped), np.int64, R)
-    wlens = np.fromiter((p[3] - p[2] for p in prepped), np.int32, R)
-    reads = np.zeros((R, int(lens.max())), np.int32)
-    for i, p in enumerate(prepped):
-        reads[i, :p[6]] = p[5]
+    apos = np.fromiter((a.pos for _j, _e, a, _r, _L in jobs), np.int64, R)
+    astr = np.fromiter((a.strand for _j, _e, a, _r, _L in jobs), np.int64, R)
+    lens = np.fromiter((L for *_x, L in jobs), np.int32, R)
+    lo, hi, strand = _rescue_windows(text, meta, apos, astr, lens, rlim)
+    wlens = (hi - lo).astype(np.int32)
+    Lmax = int(lens.max())
+    reads = np.zeros((R, Lmax), np.int32)
+    for i, (_j, _e, _a, read, L) in enumerate(jobs):
+        reads[i, :L] = read
+    t = np.arange(Lmax)
+    live = t[None, :] < lens[:, None]
+    if strand.any():      # the reverse mates' reverse complements
+        rc = np.take_along_axis(
+            reads, np.clip(lens[:, None] - 1 - t[None, :], 0, Lmax - 1), 1)
+        rc = np.where(live, np.where(rc <= 3, 3 - rc, rc), 0)
+        reads = np.where(strand[:, None] == 1, rc, reads)
     text = np.asarray(text)
     # window columns past wlens are never read: clamp them into the text
     cols = np.arange(max(int(wlens.max()), 1))
@@ -807,23 +825,28 @@ def _rescue_batch(text, meta, jobs, rlim, opt: AlnOpt, device):
     cost = cost.cpu().numpy()
     budget = {L: max(opt.diff_budget(L), round(0.15 * L)) * opt.s_mm
               for L in set(lens.tolist())}
-    keep = np.flatnonzero((wlens >= lens) & (cost <= np.fromiter(
-        (budget[L] for L in lens.tolist()), np.int64, R)))
+    bound = np.fromiter((budget[L] for L in lens.tolist()), np.int64, R)
+    keep = np.flatnonzero((wlens >= lens) & (cost <= bound))
 
-    found = {}
+    found = [None] * R
     if keep.size:
-        Lmax = reads.shape[1]
         c2, start, ops = refpack.glocal_batch(
             reads[keep].astype(np.uint8), np.arange(keep.size) * Lmax,
             lens[keep], text, lo[keep], wlens[keep], opt.s_mm, opt.s_gapo,
             opt.s_gape)
-        for k, i in enumerate(keep.tolist()):
-            _, _, lo_i, hi_i, strand, target, L = prepped[i]
-            found[i] = _rescue_accept(text, lo_i, hi_i, strand, target, L,
-                                      int(c2[k]), int(start[k]),
-                                      _cigar_from_ops(ops[k]), opt)
-    for i, p in enumerate(prepped):
-        yield p[0], p[1], found.get(i)
+        sel = np.flatnonzero((start >= 0) & (c2 <= bound[keep]))
+        acc = keep[sel]
+        n_mm, n_ins, n_del, n_open = _trace_counts(
+            [ops[k] for k in sel.tolist()], start[sel], lo[acc], reads[acc],
+            text)
+        for i, *fields in zip(
+                acc.tolist(), (lo[acc] + start[sel]).tolist(),
+                strand[acc].tolist(), c2[sel].tolist(), n_mm.tolist(),
+                n_open.tolist(),
+                np.maximum(n_ins + n_del - n_open, 0).tolist()):
+            found[i] = Occurrence(*fields)
+    for (j, missing, *_x), occ in zip(jobs, found):
+        yield j, missing, occ
 
 
 # ---------------------------------------------------------------------------
@@ -904,7 +927,9 @@ def resolve_pe_from_occ_arrays(text, meta, reads1, reads2, names, quals1,
     Traced as ``resolve`` with the stages ``resolve.pair`` (matrices, span
     filter, groups, pairing windows, insert size, pairing, non-proper
     picks), ``resolve.rescue`` (the mate rescue and the rescued ends'
-    records), ``resolve.cores`` (MAPQ, pick cores, XA) and ``resolve.emit``.
+    records; attributes ``jobs``, and of them ``rescued`` accepted and
+    ``gapped`` accepted with a gap), ``resolve.cores`` (MAPQ, pick cores,
+    XA) and ``resolve.emit``.
     """
     metrics.stage("resolve.pair")
     peopt = peopt or PEOpt()
@@ -1081,42 +1106,28 @@ def resolve_pe_from_occ_arrays(text, meta, reads1, reads2, names, quals1,
         pick_ent[pe_sel] = grp_first[g_of[pe_sel]] + pick_slot[pe_sel]
 
     metrics.stage("resolve.rescue")
-    # ---- mate rescue (batched device screen; rare) -----------------------
+    # ---- mate rescue (batched device screen) -----------------------------
     rescued = np.zeros(N, bool)
     rescue_occ: dict[int, Occurrence] = {}
     if peopt.is_sw:
         rlim = int((mean + 4 * std) if mean is not None else peopt.max_isize)
-        np_j = np.flatnonzero(~proper)
-        jobs = []
-        for j in np_j.tolist():
-            h1, h2 = has_pick[j], has_pick[B + j]
-            if not (h1 or h2):
-                continue
-
-            def _anchor(e):
-                i = pick_ent[e]
-                return Occurrence(int(pos[i]), int(strand[i]),
-                                  int(score[i]), int(nmm[i]),
-                                  int(ngapo[i]), int(ngape[i]))
-            if h1 != h2:
-                if h2:        # end 1 missing
-                    jobs.append((j, 1, _anchor(B + j), rdmat[j, :lens[j]],
-                                 int(lens[j])))
-                else:
-                    jobs.append((j, 2, _anchor(j), rdmat[B + j, :lens[B + j]],
-                                 int(lens[B + j])))
-            else:
-                # discordant: both map, no FR combo — anchor a unique end
-                u1 = nbest_end[j] == 1 and nw_end[j] >= 1
-                u2 = nbest_end[B + j] == 1 and nw_end[B + j] >= 1
-                sc1 = score[pick_ent[j]]
-                sc2 = score[pick_ent[B + j]]
-                if u1 and (not u2 or sc1 <= sc2):
-                    jobs.append((j, 2, _anchor(j), rdmat[B + j, :lens[B + j]],
-                                 int(lens[B + j])))
-                elif u2:
-                    jobs.append((j, 1, _anchor(B + j), rdmat[j, :lens[j]],
-                                 int(lens[j])))
+        # one end picked: rescue the other; both (discordant, no FR combo):
+        # anchor a unique end, end 1 where both are unique and it scores
+        # no worse, and rescue its mate
+        h1, h2 = has_pick[:B], has_pick[B:]
+        uniq = (nbest_end == 1) & (nw_end >= 1)
+        p_sc = score[np.maximum(pick_ent, 0)] if NO else np.zeros(N, np.int64)
+        from1 = h1 & (~h2 | (uniq[:B] & (~uniq[B:] | (p_sc[:B] <= p_sc[B:]))))
+        from2 = h2 & ~from1 & (~h1 | uniq[B:])
+        jj = np.flatnonzero(~proper & (from1 | from2))
+        a_e = np.where(from1[jj], jj, B + jj)        # anchor end
+        m_e = np.where(from1[jj], B + jj, jj)        # missing end
+        a_i = pick_ent[a_e]
+        jobs = [(j, 1 + fr, Occurrence(*occ), rdmat[e, :L], L)
+                for j, fr, e, L, *occ in zip(
+                    jj.tolist(), from1[jj].tolist(), m_e.tolist(),
+                    lens[m_e].tolist(), *(a[a_i].tolist() for a in (
+                        pos, strand, score, nmm, ngapo, ngape)))]
         metrics.note(jobs=len(jobs))
         for j, missing, res in rescue(text, meta, jobs, rlim, opt):
             if res is None:
@@ -1125,15 +1136,22 @@ def resolve_pe_from_occ_arrays(text, meta, reads1, reads2, names, quals1,
             rescue_occ[e] = res
             rescued[e] = True
             proper[j] = True
+        n_gapped = sum(o.ngapo > 0 for o in rescue_occ.values())
+        metrics.note(rescued=len(rescue_occ), gapped=n_gapped)
 
-    # ---- rescued-end records (rare; per-record twin keeps byte parity) ---
-    rescue_rec: dict[int, AlnRecord] = {}
+    # ---- rescued-end records: the batched cores (MAPQ 0, the quality
+    # reversed on the reverse strand), then the name.  The cores write an
+    # empty quality as "*", which is how to_sam writes it too ---------------
+    core_jobs: tuple[list, list] = ([], [])
     for e, o in rescue_occ.items():
         qsrc = quals1 if e < B else quals2
-        q = qsrc[e % B] if qsrc else "*"
-        rec = _make_record(text, meta, rdmat[e, :lens[e]].astype(np.int8),
-                           names[e % B], q, o, 0, opt)
-        rescue_rec[e] = rec
+        core_jobs[o.ngapo > 0].append(
+            (e, rdmat[e, :lens[e]], qsrc[e % B] if qsrc else None, o))
+    rescue_rec: dict[int, AlnRecord] = _bulk_ungapped_cores(
+        text, meta, core_jobs[0], opt)
+    rescue_rec.update(_bulk_gapped_cores(text, meta, core_jobs[1], opt))
+    for e, rec in rescue_rec.items():
+        rec.qname = names[e % B]
 
     metrics.stage("resolve.cores")
     # ---- per-end c1/c2 + MAPQ (vector approx_mapq + paired adjust) -------
@@ -1388,7 +1406,7 @@ def resolve_pe_from_occ_arrays(text, meta, reads1, reads2, names, quals1,
                 rec = rescue_rec[e]
                 rec.flag = flag
                 rec.tags["XT"] = "M"
-                span = _cigar_ref_span(rec.cigar)
+                span = vars(rec).pop("ref_span")   # the cores' CIGAR span
                 pair_fields.append([flag, rec.rname, rec.pos, 0, rec.cigar,
                                     rec.seq, rec.qual, rec, span, True])
                 continue

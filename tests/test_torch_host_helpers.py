@@ -22,6 +22,7 @@ import hsa_tpu.refpack as jrefpack
 import hsa_tpu_torch.alphabet as talphabet
 import hsa_tpu_torch.cli as tcli
 import hsa_tpu_torch.config as tconfig
+import hsa_tpu_torch.fmcore as tfmcore
 import hsa_tpu_torch.metrics as tmetrics
 import hsa_tpu_torch.pipeline as tpipeline
 import hsa_tpu_torch.refpack as trefpack
@@ -37,6 +38,7 @@ from hsa_tpu.search import pigeon as jpigeon
 from hsa_tpu_torch.index import layout as tlayout
 from hsa_tpu_torch.io import fastx as tfastx
 from hsa_tpu_torch.io import sam as tsam
+from hsa_tpu_torch.oracle.bnb import align_read as talign_read
 from hsa_tpu_torch.resolve import sampe as tsampe
 from hsa_tpu_torch.resolve import samse as tsamse
 from hsa_tpu_torch.search import beam as tbeam
@@ -441,6 +443,116 @@ def test_resolve_pe_from_occ_arrays(searched, emit):
         return
     assert [_fields(r) for r in got] == [_fields(r) for r in want]
     assert got[19].tags.get("XT") == "M" and got[0].flag & 2
+
+
+@pytest.fixture(scope="module")
+def rescues():
+    """A batch that rescues ungapped and gapped mates on both strands over a
+    two-sequence reference with ambiguity runs (so that ``XN`` appears),
+    with qualities that read differently reversed: the reference, the
+    port's occurrences from its oracle, names and qualities."""
+    rs = np.random.RandomState(19)
+    n, L = 8000, 60
+    text = rs.randint(0, 4, n).astype(np.int8)
+    meta = tfastx.RefMeta(
+        names=["c1", "c2"], starts=np.asarray([0, 4000], np.int64),
+        lengths=np.asarray([4000, 4000], np.int64),
+        amb_runs=[(520, 4), (1790, 3), (4610, 5), (6230, 2)], total=n)
+    fm = tfmcore.FMIndex.build(text)
+    fm_r = tfmcore.FMIndex.build(text[::-1].copy())
+    opt = tconfig.AlnOpt(max_diff=2)
+
+    def end(start, kind):
+        """The forward-strand bases of an end whose span starts at
+        ``start``: as in the text (kind 0), with five substitutions (1: an
+        ungapped rescue) or a 1 bp deletion and three substitutions (2: a
+        gapped one)."""
+        w = text[start:start + L + 1].copy()
+        if kind == 2:
+            w = np.delete(w, 28)
+        w = w[:L]
+        for q in {0: (), 1: (5, 17, 40, 49, 55), 2: (6, 45, 53)}[kind]:
+            w[q] = (w[q] + 1) % 4
+        return w
+
+    # (fragment start, end 1 forward?, spoiled end (0: none), its kind);
+    # clean pairs' inserts 250-310 bp, spoiled pairs' 280
+    plan = [(100, True, 0, 0), (900, True, 0, 0), (1400, False, 0, 0),
+            (2100, True, 0, 0), (2700, False, 0, 0), (3300, True, 0, 0),
+            (4200, True, 0, 0), (5000, False, 0, 0), (5600, True, 0, 0),
+            (7000, False, 0, 0),
+            (300, True, 2, 1), (1550, True, 2, 2), (4380, True, 2, 1),
+            (2900, False, 2, 2), (6000, False, 2, 1), (1000, True, 1, 2),
+            (1720, False, 1, 1), (6150, True, 2, 2), (3500, False, 1, 2)]
+    r1s, r2s = [], []
+    for j, (p, fwd1, bad, kind) in enumerate(plan):
+        isize = 280 if bad else 250 + 10 * (j % 7)
+        left_bad = bad == (1 if fwd1 else 2)
+        left = end(p, kind if left_bad else 0)
+        right = talphabet.revcomp(end(p + isize - L,
+                                      kind if bad and not left_bad else 0))
+        r1s.append(left if fwd1 else right)
+        r2s.append(right if fwd1 else left)
+    B = len(plan)
+    names = [f"p{j}" for j in range(B)]
+    q1 = ["".join(chr(33 + (i * 7 + j) % 40) for i in range(L))
+          for j in range(B)]
+    q2 = [q[::-1] for q in q1]
+
+    def locate_fn(ranks):
+        return np.array([fm.locate(int(r)) for r in ranks], np.int64)
+
+    def occs(reads):
+        hf = [talign_read(fm, fm_r, r, opt) for r in reads]
+        hr = [talign_read(fm, fm_r, talphabet.revcomp(r), opt) for r in reads]
+        return tsamse.collect_occurrences(hf, hr, locate_fn)
+
+    return text, meta, r1s, r2s, names, q1, q2, occs(r1s), occs(r2s), opt
+
+
+@pytest.mark.parametrize("emit", ["records", "sam"])
+def test_pe_rescued_end_records(rescues, emit):
+    """Rescued-end records, ungapped and gapped on both strands with
+    ``XN``: the port's array resolver against the reference's on the same
+    occurrences and against the port's loop twin, byte for byte; with the
+    tracer on, the ``resolve.rescue`` stage notes as many rescued and
+    gapped jobs as the batch's records show."""
+    text, meta, r1s, r2s, names, q1, q2, (o1, t1), (o2, t2), opt = rescues
+    occ = tpigeon.occ_lists_to_arrays(o1 + o2)
+    trunc = np.concatenate([t1, t2])
+    rescue = functools.partial(tsampe._rescue_batch, device="cpu")
+    want = jsampe.resolve_pe_from_occ_arrays(
+        text, jfastx.RefMeta.from_dict(meta.to_dict()), r1s, r2s, names, q1,
+        q2, occ, jconfig.AlnOpt(max_diff=2), jconfig.PEOpt(), trunc=trunc,
+        emit=emit)
+    twin = tsampe.resolve_pe_from_occurrences(
+        text, meta, r1s, r2s, names, q1, q2, o1, o2, opt, tconfig.PEOpt(),
+        trunc1=t1, trunc2=t2, rescue=rescue)
+    tmetrics.enable()
+    try:
+        got = tsampe.resolve_pe_from_occ_arrays(
+            text, meta, r1s, r2s, names, q1, q2, occ, opt, tconfig.PEOpt(),
+            trunc=trunc, emit=emit, rescue=rescue)
+        notes = [s["attrs"] for s in tmetrics.collect()["spans"]
+                 if s["name"] == "resolve.rescue"]
+    finally:
+        tmetrics.disable()
+    if emit == "sam":
+        assert got == want
+        assert got == ([r.to_sam() for r in twin], [r.flag for r in twin])
+        recs = twin
+    else:
+        assert [_fields(r) for r in got] == [_fields(r) for r in want]
+        assert [r.to_sam() for r in got] == [r.to_sam() for r in twin]
+        recs = got
+    rescued = [r for r in recs if r.tags.get("XT") == "M"]
+    gapped = [r for r in rescued if "I" in r.cigar or "D" in r.cigar]
+    ungapped = [r for r in rescued if r not in gapped]
+    for grp in (gapped, ungapped):
+        assert {r.flag & 16 for r in grp} == {0, 16}
+        assert any("XN" in r.tags for r in grp)
+    assert [(a["rescued"], a["gapped"]) for a in notes] == \
+        [(len(rescued), len(gapped))]
 
 
 def test_collect_occurrences(searched):

@@ -142,7 +142,8 @@ def rescue_env():
     """Two sequences; jobs on both strands that are accepted (ungapped and
     gapped, one at exactly the cost budget), rejected (a random read) and
     short-window (the anchor near a sequence's end: 56 bases, which the
-    read overhangs by 4 cheap insertions)."""
+    read overhangs by 4 cheap insertions); then the edge jobs of
+    ``EDGE_JOBS``, from index 8 on."""
     rs = np.random.RandomState(21)
     seqs = [rs.randint(0, 4, 3000).astype(np.int8) for _ in range(2)]
     text = np.concatenate(seqs)
@@ -173,7 +174,46 @@ def rescue_env():
                  alphabet.revcomp(over), L))                   # short window
     jobs.append((7, 2, Occurrence(4500, 0, 0, 0, 0, 0),
                  mate(4700, 1, n_mm=9), L))       # cost 27 = 9 * s_mm budget
+
+    def edited(p, strand, ins=(), dels=(), mm=(), n_at=()):
+        """The text's bases from ``p`` with bases substituted, set to N,
+        inserted and deleted ((position, count)), every position counted
+        from ``p``; cut to L and shown as the missing mate's strand reads
+        it."""
+        r = list(text[p:p + L + 8])
+        for q in mm:
+            r[q] = (r[q] + 1) % 4
+        for q in n_at:
+            r[q] = 4
+        for q, n in sorted([*ins, *((q, -n) for q, n in dels)], reverse=True):
+            if n > 0:
+                r[q:q] = [(r[q] + 2) % 4] * n
+            else:
+                del r[q:q - n]
+        r = np.asarray(r[:L], np.int8)
+        return alphabet.revcomp(r) if strand else r
+
+    # 8: two N bases inside the aligned span, reverse mate
+    jobs.append((8, 2, Occurrence(1200, 0, 0, 0, 0, 0),
+                 edited(1450, 1, n_at=(12, 40)), L))
+    # 9: a 2 bp insertion, forward mate left of a reverse anchor
+    jobs.append((9, 1, Occurrence(2600, 1, 0, 0, 0, 0),
+                 edited(2350, 0, ins=[(30, 2)]), L))
+    # 10: a 1 bp deletion and a 1 bp insertion 30 bases apart
+    jobs.append((10, 2, Occurrence(300, 0, 0, 0, 0, 0),
+                 edited(560, 1, ins=[(45, 1)], dels=[(15, 1)]), L))
+    # 11: gapped at exactly the budget: a 2 bp deletion (15) + 4 mismatches
+    jobs.append((11, 2, Occurrence(3600, 0, 0, 0, 0, 0),
+                 edited(3850, 1, dels=[(30, 2)], mm=(5, 15, 45, 55)), L))
+    # 12: the window clamped at the second sequence's start (reverse anchor
+    # 100 bases into it), the mate forward in the first 60 bases
+    jobs.append((12, 1, Occurrence(3100, 1, 0, 0, 0, 0),
+                 edited(3010, 0, mm=(20,)), L))
     return text, meta, jobs
+
+
+EDGE_JOBS = {"n_in_span": 8, "ins_2bp": 9, "two_gaps": 10,
+             "gapped_at_budget": 11, "clamped_at_seq2": 12}
 
 
 def test_rescue_batch_matches_reference(rescue_env):
@@ -192,6 +232,41 @@ def test_rescue_batch_matches_reference(rescue_env):
     assert sum(o is not None for o in occ) >= 5
     assert any(o is not None and o.ngapo for o in occ)          # gapped
     assert {o.strand for o in occ if o is not None} == {0, 1}
+
+
+@pytest.mark.parametrize("case", [*EDGE_JOBS, "one_job"])
+def test_rescue_edge_case_matches_reference(rescue_env, case):
+    """Each edge job alone (a job list of one), field by field against the
+    reference, and what the case is there for; ``one_job`` a list of one
+    rejected job (nothing traced back)."""
+    text, meta, jobs = rescue_env
+    opt = AlnOpt()
+    i = EDGE_JOBS.get(case, 5)
+    want = list(sampe._rescue_batch(text, meta, [jobs[i]], 400, opt))
+    got = list(rescue_batch(text, meta, [jobs[i]], 400, opt, "cpu"))
+    assert [(j, e, o and vars(o)) for j, e, o in got] == \
+        [(j, e, o and vars(o)) for j, e, o in want]
+    (j, e, o), = got
+    assert (j, e) == jobs[i][:2]
+    budget = 9 * opt.s_mm
+    if case == "one_job":
+        assert o is None
+        return
+    assert o is not None and o.strand == (jobs[i][2].strand == 0)
+    if case == "n_in_span":
+        assert (o.nmm, o.ngapo, o.score) == (2, 0, 2 * opt.s_mm)
+    elif case == "ins_2bp":
+        assert (o.nmm, o.ngapo, o.ngape) == (0, 1, 1)
+        assert o.score == opt.s_gapo + opt.s_gape
+    elif case == "two_gaps":
+        assert (o.nmm, o.ngapo, o.ngape) == (0, 2, 0)
+    elif case == "gapped_at_budget":
+        assert (o.nmm, o.ngapo, o.ngape, o.score) == (4, 1, 1, budget)
+    else:
+        lo, _hi, _st = tsampe._rescue_windows(
+            text, meta, np.asarray([3100]), np.asarray([1]),
+            np.asarray([jobs[i][4]]), 400)
+        assert lo.tolist() == [3000] and o.pos == 3010 and o.nmm == 1
 
 
 def test_rescue_on_an_absent_card_raises(rescue_env):
