@@ -11,13 +11,20 @@ records are judged against it:
   only;
 - ``line_diff``: the share of sampled reads (pairs) whose records are not the
   reference's, held as :func:`_judge` says: a read the reference finds
-  repetitive (:func:`repeat_k`: some ``k`` of its bases occur more than
-  ``REPEAT_OVER`` times, as the port's capped enumeration needs,
-  ``docs/PARITY.md`` #14) by its flag (strand aside), edit score and best
-  positions; a read the port marks as capped (no ``X1``; the port also caps
-  where a batch's candidate pool overflows) by every field but ``X1`` and
-  ``XA``, MAPQ at most the reference's; any other read by its whole line.
-  A pair is repetitive when one of its ends is.
+  repetitive (:func:`repeats`) by its flag (strand aside), edit score and
+  best positions; a read the port marks as capped (no ``X1``; the port also
+  caps where a batch's candidate pool overflows) by every field but ``X1``
+  and ``XA``, MAPQ at most the reference's; any other read by its whole
+  line.  A pair is repetitive when one of its ends is.
+
+A read is repetitive where the cap of the route it takes in the port could
+have cut its hits (``docs/PARITY.md`` #14).  Where every read takes the beam
+(:func:`beam_route`: ``-o`` over 1, or the engine ``beam``), the cap is the
+beam's hit buffer: a read is repetitive where, on either strand, the
+reference counts more hits than the buffer holds (``BEAM_HITS``), counted as
+the buffer stores them (``oracle.buffer_hits``).  On every other
+configuration the cap is the pigeon search's: some :func:`repeat_k` of its
+bases occur more than ``REPEAT_OVER`` times.
 
 A cell compares the numbers its ``limits`` name (``cells/<cell>.json``),
 each limit set from the readings in ``PERF.md``; the others are printed as
@@ -40,12 +47,31 @@ from .traffic.generator import read_name
 _CIGAR = re.compile(r"(\d+)([MID])")
 # the least segment cap of the port's pigeon search (``seg_cap``)
 REPEAT_OVER = 32
+# the hit buffer of the port's beam: ``max_hits``, as ``Aligner.align_stream``
+# and ``align_pe_stream`` default it (``search/beam.py:beam_search`` too) and
+# the stream passes it on
+BEAM_HITS = 32
+
+
+def beam_route(cfg) -> bool:
+    """Whether every read of the configuration takes the port's beam: ``-o``
+    over 1 (``pipeline.py:_pigeon_split``) or the engine ``beam``."""
+    return cfg["engine"] == "beam" or int(cfg["options"]["-o"]) > 1
 
 
 def repeat_k(L: int, opt) -> int:
     """The shortest segment of the port's pigeonhole partition of an
     ``L``-base read: ``L // (budget + 1)``."""
     return L // (opt.diff_budget(L) + 1)
+
+
+def repeats(refs, reads, L, opt, beam):
+    """Each ``L``-base read's mark as repetitive by the reference's workers
+    ``refs``: on the beam route (``beam``) where its hit buffer could have
+    been cut, on the pigeon route by :func:`repeat_k` and ``REPEAT_OVER``."""
+    if beam:
+        return refs.beam_repeats(reads, BEAM_HITS)
+    return refs.repeats(reads, repeat_k(L, opt), REPEAT_OVER)
 
 
 def reference_opt(cfg, budget_less: int = 0) -> oracle.Opt:
@@ -200,16 +226,18 @@ def _judge(lines, wlines, scores, wscores, allowed, repeat):
     return list(lines) == list(wlines)
 
 
-def compare(refs, g, reads, n_pool, got, opt, log=None, dump=None):
+def compare(refs, g, reads, n_pool, got, opt, log=None, dump=None,
+            beam=False):
     """The sample's numbers: ``got`` is [(ordinal, line)] of the side judged
     (the port's records, or the control's); ``refs`` the reference's
     workers (option set 0).  ``dump``: a list that receives each read's
-    records and what they were judged by."""
+    records and what they were judged by; ``beam``: the configuration's
+    reads take the beam (:func:`beam_route`)."""
     qual = "2" * reads.shape[1]
     sampled = [reads[o % n_pool] for o, _line in got]
     want = refs.align(0, [(r, read_name(o % n_pool), qual, o)
                           for r, (o, _line) in zip(sampled, got)])
-    rep = refs.repeats(sampled, repeat_k(reads.shape[1], opt), REPEAT_OVER)
+    rep = repeats(refs, sampled, reads.shape[1], opt, beam)
     status = diff = outside = 0
     shown = Counter()
     for (o, line), (wline, best, best_set, trunc), read, r in zip(
@@ -254,20 +282,19 @@ def _allowed(wline, occs, trunc):
 
 
 def compare_pe(refs, pref, g, reads1, reads2, n_pool, got, opt, models,
-               log=None, dump=None):
+               log=None, dump=None, beam=False):
     """The sample's numbers for pairs: ``got`` is [(ordinal, line 1, line
     2)], ``models`` each pair's insert-size model; ``pref`` (the paired
     reference over ``refs``) resolves the sampled pairs together as one
-    batch.  Status is judged by end, the lines by pair; ``dump`` as for
-    :func:`compare`."""
+    batch.  Status is judged by end, the lines by pair; ``dump`` and
+    ``beam`` as for :func:`compare`."""
     L = reads1.shape[1]
     qual = "2" * L
     ends = [(reads1[o % n_pool], reads2[o % n_pool]) for o, _a, _b in got]
     want, occs = pref.resolve_ends(
         [(r1, r2, read_name(o % n_pool), qual, qual, o)
          for (r1, r2), (o, _a, _b) in zip(ends, got)], models)
-    rep = refs.repeats([r for pair in ends for r in pair],
-                       repeat_k(L, opt), REPEAT_OVER)
+    rep = repeats(refs, [r for pair in ends for r in pair], L, opt, beam)
     status = diff = outside = 0
     shown = Counter()
     for k, (o, l1, l2) in enumerate(got):
@@ -331,8 +358,9 @@ def judge(spec, g, reads, win, seed, cache, log=None, dump=None):
                                cfg["max_isize"])
             numbers.update(compare_pe(refs, paired_reference(cfg, refs, 0, g),
                                       g, reads.r1, reads.r2, reads.n, got,
-                                      opt, models, log, dump))
+                                      opt, models, log, dump,
+                                      beam_route(cfg)))
         else:
             numbers.update(compare(refs, g, reads.r1, reads.n, got, opt, log,
-                                   dump))
+                                   dump, beam_route(cfg)))
     return numbers

@@ -43,8 +43,9 @@ def control_numbers(spec, seed, cache=genome.CACHE, dump=None):
             return check.compare_pe(refs, check.paired_reference(cfg, refs, 0,
                                                                  g),
                                     g, r1, r2, n, got, opt, models,
-                                    dump=dump)
+                                    dump=dump, beam=check.beam_route(cfg))
         low = refs.align(1, [(r1[o], nm, qual, int(o))
                              for o, nm in zip(ords, names)])
         got = [(int(o), w[0]) for o, w in zip(ords, low)]
-        return check.compare(refs, g, r1, n, got, opt, dump=dump)
+        return check.compare(refs, g, r1, n, got, opt, dump=dump,
+                             beam=check.beam_route(cfg))

@@ -10,7 +10,11 @@ walk to a sampled rank gives the same position), and the reference holds one
 sequence (the configurations' genomes have one record and no ambiguous
 bases).  The search semantics are those of ``bwtgap.c:bwt_match_gap`` with the
 port's two documented deviations (hits enumerated to the score window, not
-cut by ``max_entries``; duplicate positions removed at resolution).
+cut by ``max_entries``; duplicate positions removed at resolution), and with
+``bwtaln.c``'s seeding, where the port's oracle departs from bwa: the seed is
+the last ``seed_len`` bases of a read longer than ``seed_len``, and a read of
+``seed_len`` bases or fewer has none, so that ``max_seed_diff`` bounds
+nothing there (the port counts the whole read as its seed).
 """
 
 from __future__ import annotations
@@ -165,74 +169,128 @@ class Hit:
     l: int
 
 
-def match_gap(fm: FMIndex, read, D_arr, opt: Opt, max_diff: int):
-    """All hits of ``read`` with score within ``s_mm`` of the best."""
-    L = len(read)
-    seed_start = L - opt.seed_len
+def seed_start(L: int, opt: Opt) -> int:
+    """The seed of an ``L``-base read is its bases ``i > seed_start``: the
+    last ``seed_len``, or none where ``seed_len`` is at or over ``L``
+    (``bwtaln.c`` then passes ``bwt_match_gap`` no seed widths; the manual:
+    "If INT is larger than the query sequence, seeding will be disabled")."""
+    return L - opt.seed_len if opt.seed_len < L else L
+
+
+def _children(fm: FMIndex, read, opt: Opt, start: int, s):
+    """The states one step of the search reaches from state ``s`` = (score,
+    k, l, i, nmm, ngapo, ngape, state, seed_mm), in ``bwt_match_gap``'s
+    order: a deletion by each base, an insertion, a match or mismatch by
+    each base.  Their budgets are :func:`_admissible`'s to check."""
+    score, k, l, i, nmm, ngapo, ngape, state, seed_mm = s
+    in_seed = i > start
+    ext = [fm.extend(a, k, l) for a in range(4)]
+    out = []
     skip = opt.indel_end_skip
+    if (len(read) - i) >= skip and i >= skip:
+        open_ = state == M
+        cost = opt.s_gapo if open_ else opt.s_gape
+        gapo, gape = ngapo + open_, ngape + (not open_)
+        if open_ and ngapo < opt.max_gapo or state == D and \
+                ngape < opt.max_gape:
+            out += [(score + cost, k2, l2, i, nmm, gapo, gape, D,
+                     seed_mm + in_seed) for k2, l2 in ext if k2 <= l2]
+        if open_ and ngapo < opt.max_gapo or state == I and \
+                ngape < opt.max_gape:
+            out.append((score + cost, k, l, i - 1, nmm, gapo, gape, I,
+                        seed_mm + in_seed))
+    b = int(read[i - 1])
+    for a, (k2, l2) in enumerate(ext):
+        if k2 <= l2:
+            mm = a != b
+            out.append((score + opt.s_mm * mm, k2, l2, i - 1, nmm + mm,
+                        ngapo, ngape, M, seed_mm + in_seed * mm))
+    return out
+
+
+def _admissible(s, D_arr, opt: Opt, max_diff: int) -> bool:
+    """Whether state ``s`` keeps to the difference budget (with the lower
+    bound ``D_arr`` of what its unread bases still cost) and the seed's."""
+    i = s[3]
+    lb = int(D_arr[i - 1]) if i > 0 else 0
+    return s[4] + s[5] + s[6] + lb <= max_diff and s[8] <= opt.max_seed_diff
+
+
+def match_gap(fm: FMIndex, read, D_arr, opt: Opt, max_diff: int):
+    """All hits of ``read`` with score within ``s_mm`` of the best: a
+    best-first search whose states beyond that window are never taken."""
+    start = seed_start(len(read), opt)
     best_score = None
     hits: dict = {}
     counter = 0
-    heap = [(0, 0, 0, fm.n, L, 0, 0, 0, M, 0)]
-
-    def push(score, k, l, i, nmm, ngapo, ngape, state, seed_mm):
-        nonlocal counter
-        ndiff = nmm + ngapo + ngape
-        if ndiff > max_diff:
-            return
-        lb = int(D_arr[i - 1]) if i > 0 else 0
-        if ndiff + lb > max_diff:
-            return
-        if seed_mm > opt.max_seed_diff:
-            return
-        if best_score is not None and score > best_score + opt.s_mm:
-            return
-        counter += 1
-        heapq.heappush(heap, (score, counter, k, l, i, nmm, ngapo, ngape,
-                              state, seed_mm))
-
+    heap = [(0, 0, (0, 0, fm.n, len(read), 0, 0, 0, M, 0))]
     while heap:
-        score, _, k, l, i, nmm, ngapo, ngape, state, seed_mm = \
-            heapq.heappop(heap)
+        score, _, s = heapq.heappop(heap)
         if best_score is not None and score > best_score + opt.s_mm:
             break
-        if i == 0:
+        if s[3] == 0:
             if best_score is None:
                 best_score = score
+            _, k, l, _, nmm, ngapo, ngape, _, _ = s
             key = (k, l, nmm, ngapo, ngape)
             if key not in hits or hits[key].score > score:
                 hits[key] = Hit(score, nmm, ngapo, ngape, k, l)
             continue
-        in_seed = i > seed_start
-        b = int(read[i - 1])
-        indel_ok = (L - i) >= skip and i >= skip
-        if indel_ok and (state == M and ngapo < opt.max_gapo
-                         or state == D and ngape < opt.max_gape):
-            open_ = state == M
-            for a in range(4):
-                k2, l2 = fm.extend(a, k, l)
-                if k2 <= l2:
-                    push(score + (opt.s_gapo if open_ else opt.s_gape), k2, l2,
-                         i, nmm, ngapo + open_, ngape + (not open_), D,
-                         seed_mm + in_seed)
-        if indel_ok and (state == M and ngapo < opt.max_gapo
-                         or state == I and ngape < opt.max_gape):
-            open_ = state == M
-            push(score + (opt.s_gapo if open_ else opt.s_gape), k, l, i - 1,
-                 nmm, ngapo + open_, ngape + (not open_), I, seed_mm + in_seed)
-        for a in range(4):
-            k2, l2 = fm.extend(a, k, l)
-            if k2 <= l2:
-                if a == b:
-                    push(score, k2, l2, i - 1, nmm, ngapo, ngape, M, seed_mm)
-                else:
-                    push(score + opt.s_mm, k2, l2, i - 1, nmm + 1, ngapo,
-                         ngape, M, seed_mm + in_seed)
+        for c in _children(fm, read, opt, start, s):
+            if _admissible(c, D_arr, opt, max_diff) and (
+                    best_score is None or c[0] <= best_score + opt.s_mm):
+                counter += 1
+                heapq.heappush(heap, (c[0], counter, c))
     if best_score is None:
         return []
     out = [h for h in hits.values() if h.score <= best_score + opt.s_mm]
     out.sort(key=lambda h: (h.score, h.k, h.l, h.nmm, h.ngapo, h.ngape))
     return out
+
+
+def buffer_hits(fm: FMIndex, read, D_arr, opt: Opt, max_diff: int,
+                cap: int) -> int:
+    """The hits of ``read`` that the port's beam stores in its hit buffer,
+    counted until the count passes ``cap``.  The beam takes every state one
+    step a round (a deletion is a step), stores every completion within the
+    budget, one a path and the score window aside, and from the first
+    completion on keeps only the live states within ``s_mm`` of the best
+    completion so far.  Here its width is unbounded: every state it could
+    keep is kept.
+
+    The first round that completes takes every deletion-free path within
+    the budget, whatever its score, so a depth-first count of those decides
+    first where it passes ``cap`` (a low-complexity read has thousands of
+    them, and a frontier of 10^5 states before they complete)."""
+    start = seed_start(len(read), opt)
+    root = (0, 0, fm.n, len(read), 0, 0, 0, M, 0)
+    stack, n = [root], 0
+    while stack and n <= cap:
+        for c in _children(fm, read, opt, start, stack.pop()):
+            if c[7] != D and _admissible(c, D_arr, opt, max_diff):
+                if c[3]:
+                    stack.append(c)
+                else:
+                    n += 1
+    if n > cap:
+        return n
+    front, best, n = [root], None, 0
+    while front:
+        live = []
+        for s in front:
+            for c in _children(fm, read, opt, start, s):
+                if not _admissible(c, D_arr, opt, max_diff):
+                    continue
+                if c[3]:
+                    live.append(c)
+                else:
+                    n += 1
+                    best = c[0] if best is None else min(best, c[0])
+        if n > cap:
+            break
+        front = (live if best is None
+                 else [c for c in live if c[0] <= best + opt.s_mm])
+    return n
 
 
 def revcomp(codes):
@@ -506,6 +564,18 @@ class Reference:
         hf = align_read(self.fm, self.fm_rev, read, self.opt)
         hr = align_read(self.fm, self.fm_rev, revcomp(read), self.opt)
         return collect_occurrences(hf, hr, self.fm, max_occ)
+
+    def beam_repeat(self, read, over: int) -> bool:
+        """Whether the port's beam could have cut the read's hits: on either
+        strand :func:`buffer_hits` counts more than ``over``."""
+        read = np.asarray(read, np.int8)
+        budget = self.opt.diff_budget(len(read))
+        for seq in (read, revcomp(read)):
+            D_arr = cal_width(self.fm_rev, seq)
+            if D_arr[-1] <= budget and buffer_hits(
+                    self.fm, seq, D_arr, self.opt, budget, over) > over:
+                return True
+        return False
 
     def repeat(self, read, k: int, over: int) -> bool:
         """Whether some ``k`` bases of the read, on either strand, occur

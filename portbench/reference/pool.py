@@ -6,7 +6,8 @@ from the cache, so the workers share them through the page cache.
 ``oracle.Reference.align`` of each ``(read, name, qual, ordinal)`` and
 ``occurrences(which, reads, max_occ)`` each read's occurrences, under
 ``opts[which]``; ``repeats(reads, k, over)`` ``oracle.Reference.repeat`` of
-each.  With ``workers`` 0 everything runs in this process.
+each, and ``beam_repeats(reads, over)`` ``oracle.Reference.beam_repeat``.
+With ``workers`` 0 everything runs in this process.
 """
 
 from __future__ import annotations
@@ -50,6 +51,11 @@ def _repeat(task):
     return _REFS[0].repeat(read, k, over)
 
 
+def _beam_repeat(task):
+    read, over = task
+    return _REFS[0].beam_repeat(read, over)
+
+
 class Refs:
     def __init__(self, paths, rname, opts, workers: int):
         self.refs = load(paths, rname, opts)
@@ -73,6 +79,9 @@ class Refs:
 
     def repeats(self, reads, k, over):
         return self._map(_repeat, [(r, k, over) for r in reads])
+
+    def beam_repeats(self, reads, over):
+        return self._map(_beam_repeat, [(r, over) for r in reads])
 
     def close(self):
         if self.pool is not None:

@@ -1,13 +1,17 @@
 """The plain reference against the port's own oracle on a small genome
 (the reference imports nothing of the port; this test does, to hold it)."""
 
+import json
+import os
+
 import numpy as np
 import pytest
 
-from portbench import check
+from portbench import check, genome
 from portbench.genome import synth_genome
 from portbench.reference import oracle
 from portbench.traffic import generator as G
+from tests_paths import ROOT
 
 SPEC = dict(mut_rate=0.001, indel_frac=0.15, indel_extend=0.3, err_rate=0.02,
             outer_mean=500, outer_sd=50)
@@ -51,7 +55,6 @@ def test_edit_score_and_compare(tmp_path, workers):
     opt = oracle.Opt()
     cfg = {"name": "t", "genome": {"name": "chr21", "length": len(g),
                                    "model": "repeats", "seed": 9}}
-    from portbench import genome
     genome.load_genome(cfg, str(tmp_path))
     with check.reference(cfg, g, str(tmp_path), [opt], workers) as refs:
         got = [(i, w[0]) for i, w in enumerate(refs.align(
@@ -129,3 +132,88 @@ def test_repeat_rule():
     assert not judged(moved[:11] + tags, False)
     # any other read: the whole line
     assert judged(f, False) and not judged(lower + f[11:], False)
+
+
+@pytest.fixture(scope="module")
+def iid_reference():
+    g = synth_genome(200_000, "iid", 13)
+    return g, oracle.Reference(g, "chr21", oracle.suffix_array(g),
+                               oracle.suffix_array(g[::-1].copy()),
+                               oracle.Opt())
+
+
+@pytest.mark.parametrize("seed_len,subs,mapped", [
+    (1024, (5, 20, 35), True),
+    (1024, (5, 17, 29, 41), True),
+    (32, (20, 30, 40), False),
+    (32, (5, 20, 35), True),
+    (50, (20, 30, 40), True),
+    (49, (20, 30, 40), False),
+], ids=["unseeded-3", "unseeded-4", "seed-holds-3", "seed-holds-2",
+        "l-at-L", "l-under-L"])
+def test_seed_rule(iid_reference, seed_len, subs, mapped):
+    """``-l`` at or over the read length turns seeding off (the ``bwa aln``
+    manual; ``bwtaln.c``): under ``-n 4 -k 2`` a 50 bp read with 3 or 4
+    substitutions spread over it maps at its origin; under a seed, one with
+    3 in its last ``-l`` bases does not."""
+    g, ref = iid_reference
+    ref = ref.with_opt(oracle.Opt(max_diff=4, seed_len=seed_len,
+                                  max_seed_diff=2))
+    for p in np.random.default_rng(seed_len).integers(0, len(g) - 50, 4):
+        read = g[p:p + 50].copy()
+        read[list(subs)] = (read[list(subs)] + 1) % 4
+        f = ref.align(read, "r", "2" * 50, 0)[0].split("\t")
+        if mapped:
+            assert (f[1], f[3], f[5]) == ("0", str(p + 1), "50M")
+            assert f"NM:i:{len(subs)}" in f
+        else:
+            assert f[1] == "4"
+
+
+def test_beam_repeat_rule(tmp_path):
+    """On the beam route the port's hit buffer caps the enumeration: every
+    read whose strand search the port's beam flags with ``n_hits_dropped``
+    is one the reference calls repetitive."""
+    from hsa_tpu_torch.config import AlnOpt
+    from hsa_tpu_torch.index.layout import build_device_index
+    from hsa_tpu_torch.pipeline import Aligner
+    cfg = {"name": "t", "engine": "auto", "options": {"-o": 2},
+           "genome": {"name": "chr21", "length": 100_000, "model": "repeats",
+                      "seed": 6}}
+    assert check.beam_route(cfg)
+    assert check.beam_route(dict(cfg, engine="beam", options={"-o": 1}))
+    g = genome.load_genome(cfg, str(tmp_path))
+    r, _ = G.reads(SPEC, g, 100, 50, False, 1)
+    al = Aligner.from_arrays(build_device_index(g), g,
+                             opt=AlnOpt(max_gapo=2), device="cpu")
+    al.search_batch(list(r))
+    hits_dropped = al.last_overflow[1]
+    flagged = (hits_dropped[:100] > 0) | (hits_dropped[100:] > 0)
+    opt = oracle.Opt(max_gapo=2)
+    with check.reference(cfg, g, str(tmp_path), [opt], 0) as refs:
+        rep = np.asarray(check.repeats(refs, list(r), 50, opt, True))
+    print(f"beam route: {flagged.sum()} of 100 reads flagged by the port, "
+          f"{rep.sum()} repetitive, {(rep & ~flagged).sum()} of them "
+          f"unflagged")
+    assert flagged.any() and rep[flagged].all()
+
+
+@pytest.mark.parametrize("name", ["chr21rep_se100", "chr21rep_pe150"])
+def test_repeat_rule_of_the_cells(tmp_path, name):
+    """The cells' configurations take the pigeon route, where a read is
+    repetitive by ``repeat_k`` and ``REPEAT_OVER``, decision for
+    decision."""
+    with open(os.path.join(ROOT, "portbench", "configs",
+                           name + ".json")) as fh:
+        cfg = json.load(fh)
+    cfg["genome"]["length"] = 100_000
+    assert not check.beam_route(cfg)
+    g = genome.load_genome(cfg, str(tmp_path))
+    L = cfg["read_length"]
+    r, _ = G.reads(SPEC, g, 40, L, False, 3)
+    opt = check.reference_opt(cfg)
+    with check.reference(cfg, g, str(tmp_path), [opt], 0) as refs:
+        got = check.repeats(refs, list(r), L, opt, check.beam_route(cfg))
+        want = [refs.refs[0].repeat(x, check.repeat_k(L, opt),
+                                    check.REPEAT_OVER) for x in r]
+    assert got == want and 0 < sum(got) < len(got)
